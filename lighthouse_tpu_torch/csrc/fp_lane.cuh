@@ -1,0 +1,264 @@
+// Lane-major Fp arithmetic over BLS12-381 as CUDA device functions.
+//
+// The device half of lighthouse_tpu_torch/ops/lane/fp.py: an element is
+// W = 36 signed lazy 11-bit limbs (int32), value = sum(limb[i] << 11*i)
+// mod p. In global memory a batch is [stack..., W, S] int32, limb i of
+// element (k, s) at (k*W + i)*S + s, so the threads of a warp (one thread
+// per element, neighbouring s) read neighbouring addresses.
+//
+// Each function mirrors one plain PyTorch body (and through it the
+// reference's jnp body in lighthouse_tpu/ops/lane/fp.py) operation for
+// operation: the same carry passes at the same schedule depths, the same
+// fold matrices, the same int32 arithmetic. `>>` on int is arithmetic and
+// `& MASK` acts on the two's-complement pattern, as jnp.right_shift and
+// jnp.bitwise_and do. No product or sum wraps at these depths (the
+// reference's limb-bounds certificate, tests/budgets/limb_bounds.json);
+// changing a depth below voids that proof.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace lh {
+
+constexpr int B = 11;
+constexpr int W = 36;
+constexpr int MASK = (1 << B) - 1;
+constexpr int CONVW = 2 * W + 1;  // 73
+constexpr int FOLD_AT = 35;
+constexpr int NFOLD = 41;         // FOLDS columns: [full 38 | 2 | 1]
+
+// Carry-pass depths, copied from `_SCHED` (ops/lane/fp.py).
+constexpr int MUL_ENTRY_A = 2;
+constexpr int MUL_ENTRY_B = 2;
+constexpr int MUL_WIDE = 2;
+constexpr int MUL_FOLD37 = 0;
+constexpr int MUL_FOLD36 = 0;
+constexpr int MUL_FOLD35 = 1;
+constexpr int SQR_ENTRY = 1;
+constexpr int RL_ENTRY = 0;
+constexpr int RL_FOLD_A = 0;
+constexpr int RL_FOLD_B = 1;
+// canon.* sites are OPEN (value-preserving) passes
+constexpr int CANON_ENTRY = 0;
+constexpr int CANON_FOLD_A = 0;
+constexpr int CANON_FOLD_B = 1;
+constexpr int CANON_FOLD_C = 1;
+constexpr int CANON_FOLD_D = 0;
+
+// FOLDS [W, 41] and TOPFM [3, CONVW], row-major; every thread of a warp
+// reads the same entry at the same time, which constant memory broadcasts.
+static __constant__ int c_folds[W * NFOLD];
+static __constant__ int c_topfm[3 * CONVW];
+
+// topfold row by carry width (`_TROW`): 73 -> 0, 37 -> 1, 36 -> 2
+__host__ __device__ constexpr int trow(int n) {
+  return n == CONVW ? 0 : (n == 37 ? 1 : 2);
+}
+
+// One carry pass (`_norm1`): out[i] = lo[i] + hi[i-1] + hi[top] * topf[i].
+template <int N>
+__device__ __forceinline__ void norm1(int* x) {
+  const int* tf = c_topfm + trow(N) * CONVW;
+  const int top = x[N - 1] >> B;
+  int carry = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int v = x[i];
+    x[i] = (v & MASK) + carry + top * tf[i];
+    carry = v >> B;
+  }
+}
+
+// One value-preserving pass (`_norm1_open`): the top limb keeps its own
+// carry, lo_top + 2^B * hi_top == top, and takes the carry from below.
+template <int N>
+__device__ __forceinline__ void norm1_open(int* x) {
+  int carry = 0;
+#pragma unroll
+  for (int i = 0; i < N - 1; ++i) {
+    const int v = x[i];
+    x[i] = (v & MASK) + carry;
+    carry = v >> B;
+  }
+  x[N - 1] += carry;
+}
+
+template <int N, int PASSES, bool OPEN = false>
+__device__ __forceinline__ void norm(int* x) {
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    if (OPEN) {
+      norm1_open<N>(x);
+    } else {
+      norm1<N>(x);
+    }
+  }
+}
+
+// Schoolbook limb product (`_conv`): acc[i+j] += a[i]*b[j]; limbs 71 and
+// 72 stay 0.
+__device__ __forceinline__ void conv(const int* a, const int* b, int* acc) {
+#pragma unroll
+  for (int k = 0; k < CONVW; ++k) acc[k] = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[i + j] += a[i] * b[j];
+  }
+}
+
+// `_fold(x, folds[:, OFF:OFF + N - FOLD_AT])`: N limbs -> W limbs,
+// out[i] = (i < FOLD_AT ? x[i] : 0) + sum_k folds[i][OFF+k] * x[FOLD_AT+k].
+template <int N, int OFF>
+__device__ __forceinline__ void fold(const int* x, int* out) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    int s = i < FOLD_AT ? x[i] : 0;
+#pragma unroll
+    for (int k = 0; k < N - FOLD_AT; ++k) {
+      s += c_folds[i * NFOLD + OFF + k] * x[FOLD_AT + k];
+    }
+    out[i] = s;
+  }
+}
+
+// `_mul_body`: optional entry norms, conv, 73-limb norm, three folds
+// (73 -> 36 padded to 37, 37 -> 36, 36 -> 36).
+template <bool NORM_A, bool NORM_B>
+__device__ __forceinline__ void mul_body(int* out, const int* a_in,
+                                         const int* b_in) {
+  int a[W], b[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    a[i] = a_in[i];
+    b[i] = b_in[i];
+  }
+  if (NORM_A) norm<W, MUL_ENTRY_A>(a);
+  if (NORM_B) norm<W, MUL_ENTRY_B>(b);
+  int wide[CONVW];
+  conv(a, b, wide);
+  norm<CONVW, MUL_WIDE>(wide);
+  int x37[37];
+  fold<CONVW, 0>(wide, x37);
+  x37[36] = 0;
+  norm<37, MUL_FOLD37>(x37);
+  int x36[W];
+  fold<37, 38>(x37, x36);
+  norm<W, MUL_FOLD36>(x36);
+  fold<W, 40>(x36, out);
+  norm<W, MUL_FOLD35>(out);
+}
+
+// `_sqr_fn`: one sqr.entry pass, then the product without entry norms.
+__device__ __forceinline__ void sqr_body(int* out, const int* a_in) {
+  int a[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) a[i] = a_in[i];
+  norm<W, SQR_ENTRY>(a);
+  mul_body<false, false>(out, a, a);
+}
+
+// `_reduce_light_body`, in place.
+__device__ __forceinline__ void reduce_light_body(int* x) {
+  int t[W];
+  norm<W, RL_ENTRY>(x);
+  fold<W, 40>(x, t);
+  norm<W, RL_FOLD_A>(t);
+  fold<W, 40>(t, x);
+  norm<W, RL_FOLD_B>(x);
+}
+
+// `_canon_reduce_body`, in place: open passes and four single-row folds.
+__device__ __forceinline__ void canon_reduce_body(int* x) {
+  int t[W];
+  norm<W, CANON_ENTRY, true>(x);
+  fold<W, 40>(x, t);
+  norm<W, CANON_FOLD_A, true>(t);
+  fold<W, 40>(t, x);
+  norm<W, CANON_FOLD_B, true>(x);
+  fold<W, 40>(x, t);
+  norm<W, CANON_FOLD_C, true>(t);
+  fold<W, 40>(t, x);
+  norm<W, CANON_FOLD_D, true>(x);
+}
+
+// Out-of-line entries for the group kernels: one copy of the product's
+// code (registers inside), operands in the caller's local memory.
+__device__ __noinline__ void fp_mul(int* out, const int* a, const int* b) {
+  mul_body<true, true>(out, a, b);
+}
+
+__device__ __noinline__ void fp_sqr(int* out, const int* a) {
+  sqr_body(out, a);
+}
+
+__device__ __noinline__ void fp_reduce_light(int* x) { reduce_light_body(x); }
+
+// ---------------------------------------------------------- lazy glue
+__device__ __forceinline__ void fp_copy(int* out, const int* a) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = a[i];
+}
+
+// out = ca*a + cb*b + cc*c, limb by limb (the bodies' lazy sums)
+__device__ __forceinline__ void fp_lin3(int* out, int ca, const int* a, int cb,
+                                        const int* b, int cc, const int* c) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = ca * a[i] + cb * b[i] + cc * c[i];
+}
+
+__device__ __forceinline__ void fp_lin2(int* out, int ca, const int* a, int cb,
+                                        const int* b) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = ca * a[i] + cb * b[i];
+}
+
+// structural zero (`_is_zero`): every limb exactly 0, not === 0 mod p
+__device__ __forceinline__ bool fp_is_zero(const int* a) {
+  int acc = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) acc |= a[i];
+  return acc == 0;
+}
+
+// ---------------------------------------------------------- global I/O
+// Element (k, s) of a [K, W, S] batch: limb i at (k*W + i)*S + s.
+__device__ __forceinline__ void load_elem(int* out, const int* __restrict__ g,
+                                          long base, int S) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = g[base + (long)i * S];
+}
+
+__device__ __forceinline__ void store_elem(int* __restrict__ g, const int* v,
+                                           long base, int S) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) g[base + (long)i * S] = v[i];
+}
+
+// Thread -> (k, s); false past the ragged edge of K*S elements.
+__device__ __forceinline__ bool elem_index(int K, int S, long* base) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long)K * S) return false;
+  const long k = t / S;
+  const long s = t - k * S;
+  *base = k * W * S + s;
+  return true;
+}
+
+constexpr int THREADS = 128;
+
+inline unsigned blocks_for(int K, int S) {
+  return (unsigned)(((long)K * S + THREADS - 1) / THREADS);
+}
+
+// Copy FOLDS / TOPFM (host int32 arrays) into this module's constant bank.
+static inline int copy_consts(const void* folds, const void* topfm) {
+  cudaError_t e = cudaMemcpyToSymbol(c_folds, folds, sizeof(c_folds));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_topfm, topfm, sizeof(c_topfm));
+  return (int)e;
+}
+
+}  // namespace lh
+
+// Every library exports its error-string helper under its own name.
+#define LH_EXPORT extern "C" __attribute__((visibility("default")))

@@ -1,0 +1,140 @@
+"""The port's lane-major Fp core against the JAX reference, limb for limb.
+
+lighthouse_tpu_torch/ops/lane/fp.py keeps the reference's layout
+([..., W=36, S] int32, signed lazy 11-bit limbs) and copies its carry
+schedule, so both compute the same integers and every comparison here is
+exact. The reference runs its jnp bodies eagerly on the CPU, as its own
+tests do (off-TPU its kernel_op calls the body directly); the port runs
+its plain PyTorch bodies, which a CPU tensor selects.
+"""
+
+import random
+import re
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from lighthouse_tpu.ops import fp as ref_base
+from lighthouse_tpu.ops.lane import fp as ref
+from lighthouse_tpu_torch import convert
+from lighthouse_tpu_torch.crypto.bls.params import P
+from lighthouse_tpu_torch.ops import fp as port_base
+from lighthouse_tpu_torch.ops.lane import fp as port
+
+CUH = Path(port.__file__).resolve().parents[2] / "csrc" / "fp_lane.cuh"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the bodies are many small ops: extra threads only contend
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def lazy(rng, shape, terms=3):
+    """Signed sums of up to `terms` canonical-limb elements: the lazy
+    operands the kernels take, inside the certified entry intervals."""
+    out = np.zeros(shape, np.int32)
+    for _ in range(terms):
+        out += int(rng.choice([-1, 1])) * rng.integers(0, 1 << port.B, shape, dtype=np.int32)
+    return out
+
+
+def test_constants_equal_reference():
+    got = convert.constants_from_reference(
+        {
+            "FOLDS_NP": ref.FOLDS_NP,
+            "TOPFM_NP": ref.TOPFM_NP,
+            "KP_37": np.asarray(ref.KP_37),
+            "PK_LADDER": np.asarray(ref.PK_LADDER),
+            "_SCHED": ref._SCHED,
+        }
+    )
+    # the CUDA libraries take the tables by pointer: they must be C-ordered
+    assert port.FOLDS_NP.flags.c_contiguous and port.TOPFM_NP.flags.c_contiguous
+    c = port.consts("cpu")
+    assert torch.equal(got["FOLDS"], c["folds"])
+    assert torch.equal(got["TOPFM"], c["topf"])
+    assert torch.equal(got["KP_37"], c["kp37"][:, 0])
+    assert torch.equal(got["PK_LADDER"], c["pk_ladder"][..., 0])
+    assert got["SCHED"] == port._SCHED
+    assert port._OPEN_SITES == ref._OPEN_SITES
+    assert port._TROW == ref._TROW
+    assert (port.B, port.W, port.MASK, port.CONVW, port.FOLD_AT) == (
+        ref.B, ref.W, ref.MASK, ref.CONVW, ref.FOLD_AT
+    )
+    assert port_base._KP == ref_base._KP
+    assert port._LADDER_ROUNDS == ref._LADDER_ROUNDS
+    assert np.array_equal(port.ONE, ref.ONE) and np.array_equal(port.ZERO, ref.ZERO)
+
+
+def test_cuda_header_depths_equal_schedule():
+    """csrc/fp_lane.cuh carries the schedule as constants; they must be
+    the copied _SCHED depths, site for site."""
+    consts = dict(
+        (m.group(1), int(m.group(2)))
+        for m in re.finditer(r"constexpr int ([A-Z0-9_]+) = (\d+);", CUH.read_text())
+    )
+    for site in (
+        "mul.entry_a", "mul.entry_b", "mul.wide", "mul.fold37", "mul.fold36",
+        "mul.fold35", "sqr.entry", "rl.entry", "rl.fold_a", "rl.fold_b",
+        "canon.entry", "canon.fold_a", "canon.fold_b", "canon.fold_c",
+        "canon.fold_d",
+    ):
+        name = site.replace(".", "_").upper()
+        assert consts[name] == port._SCHED[site], site
+
+
+def test_codec_roundtrips():
+    rnd = random.Random(7)
+    ints = [0, 1, P - 1, P, -1, 2**381] + [rnd.randrange(-P, 2 * P) for _ in range(20)]
+    for x in ints:
+        limbs = port.to_limbs(x)
+        assert np.array_equal(limbs, ref_base.to_limbs(x))
+        assert port.from_limbs(limbs) == x % P
+    packed = port.pack(ints)
+    assert packed.dtype == np.int32 and packed.shape == (port.W, len(ints))
+    assert np.array_equal(packed, ref.pack(ints))
+    assert port.unpack(torch.from_numpy(packed)) == [x % P for x in ints]
+    stacked = torch.from_numpy(np.stack([packed, packed[:, ::-1].copy()]))
+    assert port.unpack(stacked) == [x % P for x in ints + ints[::-1]]
+
+
+@pytest.mark.parametrize("shape", [(36, 128), (2, 36, 5)])
+@pytest.mark.parametrize("op", ["mul", "sqr", "canon_reduce"])
+def test_plain_body_equals_reference(op, shape):
+    rng = np.random.default_rng(zlib.crc32(f"{op}{shape}".encode()))
+    args = [lazy(rng, shape) for _ in range(2 if op == "mul" else 1)]
+    if op == "canon_reduce":  # eq_zero's input: a difference of products
+        args = [lazy(rng, shape, terms=2)]
+    port.reset_counts()
+    got = getattr(port, op)(*(torch.from_numpy(a) for a in args))
+    want = np.asarray(getattr(ref, op)(*(jnp.asarray(a) for a in args)))
+    assert got.dtype == torch.int32 and tuple(got.shape) == shape
+    assert np.array_equal(got.numpy(), want)
+    # a CPU tensor runs the plain body and launches nothing
+    assert not port.LAUNCHES and not port.PLAIN_CUDA_CALLS
+
+
+def test_canonical_and_eq_zero_match_python_ints():
+    rnd = random.Random(11)
+    xs = [rnd.randrange(P) for _ in range(7)] + [0, P - 1]
+    ys = [rnd.randrange(P) for _ in range(7)] + [0, 1]
+    a = torch.from_numpy(port.pack(xs))
+    b = torch.from_numpy(port.pack(ys))
+    diff = a - b + a  # a lazy sum of three standard elements
+    want = [(2 * x - y) % P for x, y in zip(xs, ys)]
+    assert torch.equal(port.canonical(diff), torch.from_numpy(port.pack(want)))
+    assert port.unpack(port.canonical(diff)) == want
+    # p itself (not reduced by the codec) is zero mod p
+    p_raw = torch.from_numpy(port_base._limbs_raw(P, port.W))[:, None]
+    zero_like = torch.cat([a - a, p_raw, a - b], dim=-1)
+    got = port.eq_zero(zero_like).tolist()
+    assert got == [True] * len(xs) + [True] + [x == y for x, y in zip(xs, ys)]
+    assert port.eq(a, a).all() and not port.eq(a[:, :7], b[:, :7]).any()
