@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's KZG slice on one GPU and hold every kernel
-against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port on one GPU: its KZG slice and its main path,
+BLS batch signature verification, holding every kernel against its plain
+PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit (nvcc):
@@ -12,7 +13,7 @@ needs one card. Phases, each with its seconds; any failure raises and exits
 non-zero before the last line:
 
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
-2. build: the six CUDA libraries from csrc/ (one nvcc each, in
+2. build: the seven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
    function.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
@@ -36,11 +37,28 @@ non-zero before the last line:
    block's 6); the batch verifies and fails with one byte flipped; the
    fixture blob's own proof verifies and fails with one byte flipped. The
    launch counters are zeroed just before and read just after, and every
-   kernel must have run there with no plain body on a CUDA tensor. Then,
-   apart: the per-MSM and per-pairing-check launch counts against the
-   counts read off the code, the pairing seam (device against host, the
-   same verdict), one commitment profiled for its device share.
-6. the `kernels` JSON line; 7. the `ok` JSON line (last).
+   KZG kernel must have run there with no plain body on a CUDA tensor.
+   Then, apart: the per-MSM and per-pairing-check launch counts against
+   the counts read off the code, the pairing seam (device against host,
+   the same verdict), one commitment profiled for its device share.
+6. bls: jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step against their
+   plain bodies on seeded operands (infinity lanes, every digit) at the
+   phase 3 widths, timed at S = 4096; all 17 kernels against theirs on
+   every operand layout a real bucket-128 verify meets, at S = 1, 2, the
+   layout's own width and 2 x 128, each timed at the path's width. Then
+   the BLS main path, counters zeroed just before and read just after:
+   tests/test_tpu_backend.py's verdict matrix at bucket 128 through
+   `verify_signature_sets(..., backend="cuda")`, each case against the
+   `cpu` backend on the same seeded scalars; a 1,024-set gossip batch (64
+   committees of 16 validators, keys cached in lighthouse_tpu_torch/build/)
+   verified three times, True, and with one signature moved, False. Every
+   kernel must have run there, with no plain body on a CUDA tensor, and
+   the launches per verify must equal the reference's dispatch census op
+   by op at buckets 128 and 1024. The wall per verify split into host
+   packing and device, the sets/s at 1024, and the device share of one
+   1024 verify from the profiler.
+7. the `kernels` JSON line (launches: the BLS main path's; launches_kzg:
+   phase 5's); 8. the `ok` JSON line (last).
 """
 
 from __future__ import annotations
@@ -84,7 +102,13 @@ KERNELS = {
     "miller_dbl_iter": (CSRC + "miller.cu", "lighthouse_tpu/ops/lane/pairing.py:127"),
     "miller_add_iter": (CSRC + "miller.cu", "lighthouse_tpu/ops/lane/pairing.py:128"),
     "cyc_sqr": (CSRC + "miller.cu", "lighthouse_tpu/ops/lane/pairing.py:257"),
+    "jac_dbl_f2": (CSRC + "jac_dbl.cu", "lighthouse_tpu/ops/lane/jacobian.py:164"),
+    "jac_add_f2": (CSRC + "jac_add.cu", "lighthouse_tpu/ops/lane/jacobian.py:166"),
+    "g1_win_step": (CSRC + "chains.cu", "lighthouse_tpu/ops/lane/chains.py:137"),
+    "g2_win_step": (CSRC + "chains.cu", "lighthouse_tpu/ops/lane/chains.py:138"),
 }
+# the kernels of the KZG path (slices 1 and 2)
+KZG_KERNELS = tuple(KERNELS)[:13]
 SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1")
 # every kernel of the pairing check, held on operands recorded from a real one
 RECORDED = ("mul", "sqr", "canon_reduce", "reduce_light", "f2mul", "f2sqr", "f6mul",
@@ -103,6 +127,27 @@ PER_CHECK = {"miller_dbl_iter": 63, "miller_add_iter": 5, "f12mul": 36, "cyc_sqr
 # the lane width each recorded kernel runs at on the KZG pairing path
 # (the rest: 1, after the lane product)
 PATH_S = {"miller_dbl_iter": 2, "miller_add_iter": 2}
+# slice 3's new kernels, held on seeded operands like SEEDED
+BLS_SEEDED = ("jac_dbl_f2", "jac_add_f2", "g1_win_step", "g2_win_step")
+# launches per BLS verify at buckets 128 and 1024: the reference's dispatch
+# census (lighthouse_tpu.ops.costs.verify_kernel_costs; totals 3,728 and
+# 3,767 in tests/budgets/kernel_costs.json), op by op
+_PER_VERIFY_COMMON = {
+    "sqr": 1539, "mul": 543, "cyc_sqr": 315, "miller_dbl_iter": 126,
+    "g1_win_step": 32, "g2_win_step": 32, "reduce_light": 17, "miller_add_iter": 10,
+    "f6mul": 4, "jac_dbl_f1": 2, "jac_add_f1": 1,
+}
+PER_VERIFY = {
+    128: {**_PER_VERIFY_COMMON, "f2sqr": 428, "f2mul": 358, "jac_dbl_f2": 208,
+          "f12mul": 43, "canon_reduce": 38, "jac_add_f2": 32},
+    1024: {**_PER_VERIFY_COMMON, "f2sqr": 434, "f2mul": 376, "jac_dbl_f2": 211,
+           "f12mul": 46, "canon_reduce": 44, "jac_add_f2": 35},
+}
+# the real-size batch: the node's default gossip attestation batch
+# (max_gossip_attestation_batch_size), 64 committees of 16 validators, each
+# committee signing its own message
+COMMITTEES, COMMITTEE_SIZE = 64, 16
+BLS_CACHE = REPO / "lighthouse_tpu_torch" / "build" / "bls_gossip_1024.cache.pkl"
 
 
 def say(phase: str, **kv) -> None:
@@ -144,6 +189,8 @@ def _ops_counts():
     add = 5 * sqr + 11 * mul + 4 * rl + 16 * lazy + 3 * W + 2 * W  # + selects, Z tests
     f2sqr = 2 * mul + 3 * lazy
     f2mul = 3 * mul + 2 * rl + 5 * lazy
+    dbl_f2 = 5 * f2sqr + 2 * f2mul + 6 * rl + 28 * lazy
+    add_f2 = 5 * f2sqr + 11 * f2mul + 8 * rl + 32 * lazy + 6 * W + 4 * W
     f6mul = 6 * f2mul + 6 * rl + 34 * lazy
     f12mul = 3 * f6mul + 32 * lazy
     f12sqr = 2 * f6mul + 34 * lazy
@@ -157,6 +204,11 @@ def _ops_counts():
         "miller_dbl_iter": dbl_step + f12sqr + m034,
         "miller_add_iter": add_step + m034,
         "cyc_sqr": 9 * f2sqr + 12 * rl + 68 * lazy,
+        "jac_dbl_f2": dbl_f2,
+        "jac_add_f2": add_f2,
+        # 2 doublings, one add, the 3-way and the digit-0 selects
+        "g1_win_step": 2 * dbl + add + 3 * W * 3,
+        "g2_win_step": 2 * dbl_f2 + add_f2 + 6 * W * 3,
     }
 
 
@@ -180,11 +232,13 @@ def _rows(name: str) -> int:
 
 
 def _op(name: str):
-    from lighthouse_tpu_torch.ops.lane import fp, jacobian as J, pairing as OP, tower
+    from lighthouse_tpu_torch.ops.lane import chains, fp, jacobian as J, pairing as OP, tower
 
     return {
         "mul": fp.mul, "sqr": fp.sqr, "canon_reduce": fp.canon_reduce,
         "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1,
+        "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
+        "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
         "reduce_light": fp.reduce_light, "f2mul": tower.f2mul, "f2sqr": tower.f2sqr,
         "f6mul": tower.f6mul, "f12mul": tower.f12mul,
         "miller_dbl_iter": OP._dbl_iter, "miller_add_iter": OP._add_iter,
@@ -264,12 +318,19 @@ def _inputs(rng, shape, kind):
     pts = [t(canon()), t(lazy3()), t(canon())]
     lanes = torch.arange(S, device=dev)
     pts[2][..., lanes % 7 == 3] = 0  # structural infinity (Z = 0) lanes
-    if kind == "jac_dbl_f1":
+    if kind.startswith("jac_dbl"):
         return pts
     other = [t(canon()), t(canon()), t(lazy3())]
     other[2][..., lanes % 5 == 1] = 0
     other[2][..., lanes % 7 == 3] = 0  # both infinity on some lanes
-    return pts + other
+    if kind.startswith("jac_add"):
+        return pts + other
+    # a window step: acc (pts), the table T1, T2, T3, and a digit per lane
+    table = [[t(canon()), t(canon()), t(canon())] for _ in range(3)]
+    table[0][2][..., lanes % 11 == 5] = 0
+    dig = t(rng.integers(0, 4, size=(*shape[: -2 - (kind == "g2_win_step")], 1, S)))
+    dig[..., :4] = torch.arange(4, device=dev)  # every digit, also at S=4
+    return pts + table[0] + table[1] + table[2] + [dig]
 
 
 def _median_ms(fn, reps=15, warm=2) -> float:
@@ -296,16 +357,18 @@ def _kernel_ms(name: str, fn, reps: int = 20) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     pat = rf"\bk_{name}\b"
-    hits = [e for e in prof.key_averages()
-            if re.search(pat, e.key) and _device_time(e) > 0]
-    if not hits:
-        return _median_ms(fn), "events"
-    return sum(_device_time(e) for e in hits) / sum(e.count for e in hits) / 1e3, "profiler"
+    for _ in range(2):  # a trace now and then holds no device time: one retry
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if re.search(pat, e.key) and _device_time(e) > 0]
+        if hits:
+            return (sum(_device_time(e) for e in hits) / sum(e.count for e in hits) / 1e3,
+                    "profiler")
+    return _median_ms(fn), "events"
 
 
 def _hold(name: str, args, label: str) -> int:
@@ -370,15 +433,12 @@ def _pack_pairs(pairs):
             t(tower.f2_pack_many([q[1] for _, q in pairs])))
 
 
-def _record_operands(n: int) -> dict:
-    """The operands each pairing kernel was called with during a real
-    `miller_loop`, `final_exp` and `f12_eq_one` over n seeded pairs (the
-    final exponentiation runs lane-wise here, without the lane product, so
-    every kernel sees n lanes). Per kernel and distinct layout (each
-    operand's shape and whether it is a broadcast view): the first and the
-    last call's operands, and the number of calls. These lie inside the
-    bodies' laziness contracts by construction."""
-    from lighthouse_tpu_torch.ops.lane import fp, pairing as OP, tower
+def _record(fn) -> dict:
+    """The operands each kernel was called with while fn() ran: per kernel
+    and distinct layout (each operand's shape and whether it is a broadcast
+    view), the first and the last call's operands, and the number of calls.
+    These lie inside the bodies' laziness contracts by construction."""
+    from lighthouse_tpu_torch.ops.lane import fp
 
     rec = {}
     launch = fp.KernelOp.__call__
@@ -392,12 +452,24 @@ def _record_operands(n: int) -> dict:
 
     fp.KernelOp.__call__ = recording
     try:
-        f = OP.miller_loop(*_pack_pairs(_seeded_pairs(n, SEED)))
-        tower.f12_eq_one(OP.final_exp(f))
+        fn()
         torch.cuda.synchronize()
     finally:
         fp.KernelOp.__call__ = launch
     return rec
+
+
+def _record_operands(n: int) -> dict:
+    """`_record` of a real `miller_loop`, `final_exp` and `f12_eq_one` over
+    n seeded pairs (the final exponentiation runs lane-wise here, without
+    the lane product, so every kernel sees n lanes)."""
+    from lighthouse_tpu_torch.ops.lane import pairing as OP, tower
+
+    def run():
+        f = OP.miller_loop(*_pack_pairs(_seeded_pairs(n, SEED)))
+        tower.f12_eq_one(OP.final_exp(f))
+
+    return _record(run)
 
 
 def _layout(key) -> str:
@@ -407,12 +479,19 @@ def _layout(key) -> str:
 
 
 def _widths(full) -> dict:
-    """A recorded operand set cut to the widths every kernel must take."""
+    """A recorded operand set cut to the widths every kernel must take: 1,
+    2, its own, and 2 x 128 (a leading stack of 2; lanes repeated where the
+    record is narrower than 256)."""
+    def two_128(a):
+        if a.shape[-1] < 256:
+            a = a[..., torch.arange(256, device=a.device) % a.shape[-1]]
+        return torch.stack([a[..., :128], a[..., 128:256]])
+
     return {
         "S=1": [a[..., :1] for a in full],
         "S=2": [a[..., :2] for a in full],
-        "S=4097": list(full),
-        "2x128": [torch.stack([a[..., :128], a[..., 128:256]]) for a in full],
+        f"S={full[0].shape[-1]}": list(full),
+        "2x128": [two_128(a) for a in full],
     }
 
 
@@ -572,7 +651,8 @@ def _device_share(fn, wall_s: float) -> str:
     if dev_us <= 0:
         return "not_measured(no device time in the profiler trace)"
     top = sorted(events, key=lambda e: -_device_time(e))[:5]
-    names = ",".join(f"{e.key[:28]}:{_device_time(e) / 1e3:.2f}ms" for e in top)
+    names = ",".join(f"{e.key.replace('(anonymous namespace)::', '')[:28]}:"
+                     f"{_device_time(e) / 1e3:.2f}ms" for e in top)
     return (f"{dev_us / 1e6 / wall_s:.4f} device_ms={dev_us / 1e3:.2f} "
             f"wall_ms={wall_s * 1e3:.1f} top={names}")
 
@@ -655,9 +735,9 @@ def phase_e2e() -> dict:
         prove_s=f"{statistics.median(walls['prove']):.3f}",
         verify_batch_s=f"{verify_s:.3f}", verify_corrupted_s=f"{verify_bad_s:.3f}",
         verify_one_s=f"{verify_one_s:.3f}")
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    missing = [k for k in KZG_KERNELS if launches.get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the KZG path: {missing}")
     if plain_calls:
         raise AssertionError(f"plain bodies ran on CUDA tensors on the main path: {plain_calls}")
     say("e2e", launches=json.dumps(launches, separators=(",", ":")))
@@ -700,6 +780,251 @@ def phase_e2e() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- BLS
+
+
+def _make_sets(n: int, same_msg: bool = False) -> list:
+    """n single-key sets from seeded keys (tests/test_tpu_backend.py's)."""
+    from lighthouse_tpu_torch.crypto.bls.keys import SecretKey, SignatureSet
+
+    sets = []
+    for i in range(n):
+        sk = SecretKey.from_seed(bytes([i + 1, 7]) * 2)
+        msg = b"fixed" if same_msg else b"msg-%d" % i
+        sets.append(SignatureSet.single_pubkey(sk.sign(msg), sk.public_key(), msg))
+    return sets
+
+
+def _non_subgroup_point():
+    """A point on E2 outside the r-torsion: the first x = (k, 0) whose
+    curve equation has a root and fails the subgroup check."""
+    from lighthouse_tpu_torch.crypto.bls import curve as C, fields as F
+
+    x = (1, 0)
+    while True:
+        y = F.f2sqrt(F.f2add(F.f2mul(F.f2sqr(x), x), C._B2))
+        if y is not None and not C.g2_subgroup_check((x, y)):
+            return (x, y)
+        x = (x[0] + 1, 0)
+
+
+def _gossip_batch() -> list:
+    """COMMITTEES x COMMITTEE_SIZE single-key sets, each committee's
+    validators signing the committee's own message, keys from seeds. The
+    points are cached under lighthouse_tpu_torch/build/ (made in ~30 s of
+    host math otherwise)."""
+    import pickle
+
+    from lighthouse_tpu_torch.crypto.bls.keys import PublicKey, SecretKey, Signature, SignatureSet
+
+    msgs = [b"attestation-data-committee-%d" % c for c in range(COMMITTEES)]
+    if BLS_CACHE.exists():
+        rows = pickle.loads(BLS_CACHE.read_bytes())
+    else:
+        rows = []
+        for c, msg in enumerate(msgs):
+            for v in range(COMMITTEE_SIZE):
+                sk = SecretKey.from_seed(b"validator-%d-%d" % (c, v))
+                rows.append((sk.public_key().point, sk.sign(msg).point, msg))
+        BLS_CACHE.parent.mkdir(parents=True, exist_ok=True)
+        tmp = BLS_CACHE.with_suffix(".tmp")
+        tmp.write_bytes(pickle.dumps(rows))
+        tmp.replace(BLS_CACHE)
+    return [SignatureSet.single_pubkey(Signature(point=sig), PublicKey(point=pk), msg)
+            for pk, sig, msg in rows]
+
+
+def _scalars(rng, n: int) -> list:
+    return [int.from_bytes(rng.bytes(8), "big") | 1 for _ in range(n)]
+
+
+def _seeded_bls_holds(rng, out: dict) -> None:
+    """The four new kernels against their plain bodies on seeded operands
+    (infinity lanes, every digit), timed at S=4096."""
+    for name in BLS_SEEDED:
+        f2 = name in ("jac_dbl_f2", "jac_add_f2", "g2_win_step")
+        max_err = 0
+        for shape in SHAPES:
+            shape = (*shape[:-2], 2, *shape[-2:]) if f2 else shape
+            args = _inputs(rng, shape, name)
+            max_err = max(max_err, _hold(name, args, str(shape)))
+            if shape[-1] == SHAPES[0][-1]:
+                timing = _time(name, args)
+        out[name] = dict(max_abs_err=max_err, **timing)
+        say("bls", kernel=name, equal="yes", tolerance="exact(torch.equal)",
+            shapes="S=4096,2x128,S=4097", operands="seeded(infinity lanes, digits 0-3)",
+            **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+
+
+def _verify_matrix(rng, card: str) -> dict:
+    """tests/test_tpu_backend.py's cases through the front with
+    backend="cuda", each against backend="cpu" on the same scalars. Returns
+    the launches of the first (a valid batch of 5, bucket 128)."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls.keys import SecretKey, Signature, SignatureSet
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    def both(label, sets, want):
+        rs = _scalars(rng, len(sets))
+        got = bls.verify_signature_sets(sets, backend="cuda", rand_scalars=rs)
+        oracle = bls.verify_signature_sets(sets, backend="cpu", rand_scalars=rs)
+        if got is not want or oracle is not want:
+            raise AssertionError(f"{label}: cuda {got}, cpu {oracle}, expected {want}")
+        return got
+
+    verdicts = {}
+    before = dict(fp.LAUNCHES)
+    verdicts["valid_5"] = both("valid batch of 5", _make_sets(5), True)
+    per_128 = {k: d for k in KERNELS if (d := fp.LAUNCHES[k] - before.get(k, 0))}
+    sets = _make_sets(5)
+    evil = SecretKey.from_seed(b"evil-key")
+    sets[2] = SignatureSet.single_pubkey(
+        evil.sign(b"wrong message"), sets[2].signing_keys[0], sets[2].message)
+    verdicts["poisoned"] = both("one bad signature", sets, False)
+    sks = [SecretKey.from_seed(bytes([i, 9, 9])) for i in range(1, 4)]
+    msg = b"aggregate me"
+    pks = [sk.public_key() for sk in sks]
+    agg = bls.aggregate_signatures([sk.sign(msg) for sk in sks])
+    verdicts["multi_pubkey"] = both(
+        "multi-pubkey set", [SignatureSet.multiple_pubkeys(agg, pks, msg)] + _make_sets(2), True)
+    agg_bad = bls.aggregate_signatures([sk.sign(msg) for sk in sks[:2]])
+    verdicts["signer_missing"] = both(
+        "aggregate missing a signer", [SignatureSet.multiple_pubkeys(agg_bad, pks, msg)], False)
+    one = _make_sets(1)[0]
+    verdicts["empty_input"] = both("empty input", [], False)
+    verdicts["no_keys"] = both(
+        "set with no keys", [SignatureSet(signature=one.signature, signing_keys=[], message=b"x")],
+        False)
+    verdicts["infinity_signature"] = both(
+        "infinity signature",
+        [SignatureSet.single_pubkey(Signature(point=None), one.signing_keys[0], one.message)],
+        False)
+    for backend in ("cuda", "cpu"):
+        try:
+            bls.verify_signature_sets([one], backend=backend, rand_scalars=[0])
+        except ValueError:
+            continue
+        raise AssertionError(f"{backend}: a zero batch scalar was not refused")
+    verdicts["scalar_out_of_range"] = "ValueError"
+    sets = _make_sets(2)
+    sets[1] = SignatureSet.single_pubkey(
+        Signature(point=_non_subgroup_point()), sets[1].signing_keys[0], sets[1].message)
+    verdicts["non_subgroup_signature"] = both("signature outside G2", sets, False)
+    sk = SecretKey.from_seed(b"single")
+    sig = sk.sign(b"hello")
+    for label, m, want in (("single_true", b"hello", True), ("single_false", b"goodbye", False)):
+        got = bls.verify(sig, sk.public_key(), m, backend="cuda")
+        if got is not want or bls.verify(sig, sk.public_key(), m, backend="cpu") is not want:
+            raise AssertionError(f"verify_single {label}: cuda {got}, expected {want}")
+        verdicts[label] = got
+    say("bls", matrix_bucket=128, card=repr(card),
+        verdicts=",".join(f"{k}={v}" for k, v in verdicts.items()), oracle="cpu backend, same scalars")
+    return per_128
+
+
+def phase_bls(card: str) -> tuple:
+    """Slice 3's main path, BLS verify_signature_sets on the card."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    _seeded_bls_holds(rng, out)
+
+    # every kernel of a bucket-128 verify, on the operands it met there
+    sets5, rs5 = _make_sets(5), _scalars(rng, 5)
+    rec = _record(lambda: CB.verify_signature_sets(sets5, rs5, device=DEVICE))
+    n_layouts = 0
+    for name in sorted(rec):
+        sets = rec[name]
+        max_err = max(
+            _hold(name, args, f"bls {label} [{_layout(key)}] {which}")
+            for key, entry in sets.items()
+            for which in ("first", "last")
+            for label, args in _widths(entry[which]).items()
+        )
+        n_layouts += len(sets)
+        # the layout with the most lane work (calls x lanes), as the path
+        # hands it over
+        main = max(sets.values(), key=lambda e: e["calls"] * e["last"][0].shape[-1])["last"]
+        path_args = [a.contiguous() for a in main]
+        row = out.setdefault(name, {"max_abs_err": 0})
+        row.update(max_abs_err=max(row["max_abs_err"], max_err),
+                   bls_path_S=main[0].shape[-1],
+                   bls_path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
+        say("bls", kernel=name, equal="yes", tolerance="exact(torch.equal)",
+            widths="S=1,S=2,own,2x128", operands="recorded(bucket-128 verify)",
+            layouts="|".join(f"{_layout(k)}:{e['calls']}" for k, e in sets.items()),
+            bls_path_S=row["bls_path_S"], bls_path_call_ms=f"{row['bls_path_call_ms']:.5f}")
+    missing = sorted(set(KERNELS) - set(rec))
+    if missing:
+        raise AssertionError(f"kernels a bucket-128 verify did not call: {missing}")
+    say("bls", recorded_layouts=n_layouts, kernels=len(rec))
+
+    t0 = time.perf_counter()
+    gossip = _gossip_batch()
+    say("bls", gossip_sets=len(gossip), committees=COMMITTEES, committee_size=COMMITTEE_SIZE,
+        keys_s=f"{time.perf_counter() - t0:.2f}", cache=BLS_CACHE.name)
+    # the first validator's signature moved onto the last committee's set
+    tampered = list(gossip)
+    tampered[-1] = type(gossip[-1])(signature=gossip[0].signature,
+                                    signing_keys=gossip[-1].signing_keys,
+                                    message=gossip[-1].message)
+    rs = _scalars(rng, len(gossip))
+    CB.TIMES.clear()
+    torch.cuda.synchronize()
+    fp.reset_counts()  # ---- the BLS main path's run starts here
+    per_128 = _verify_matrix(rng, card)
+    walls = []
+    for i in range(3):
+        before = dict(fp.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = bls.verify_signature_sets(gossip, backend="cuda", rand_scalars=rs)
+        walls.append(time.perf_counter() - t)
+        if ok is not True:
+            raise AssertionError("the 1,024-set gossip batch did not verify")
+        if i == 0:
+            per_1024 = {k: d for k in KERNELS if (d := fp.LAUNCHES[k] - before.get(k, 0))}
+    if bls.verify_signature_sets(tampered, backend="cuda", rand_scalars=rs) is not False:
+        raise AssertionError("the gossip batch with one signature moved verified")
+    torch.cuda.synchronize()
+    launches = dict(fp.LAUNCHES)  # ---- ... and ends here
+    plain_calls = dict(fp.PLAIN_CUDA_CALLS)
+    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the BLS path: {missing}")
+    if plain_calls:
+        raise AssertionError(f"plain bodies ran on CUDA tensors on the BLS path: {plain_calls}")
+    for bucket, got in ((128, per_128), (1024, per_1024)):
+        if got != PER_VERIFY[bucket]:
+            raise AssertionError(f"launches per verify at bucket {bucket} {got}, "
+                                 f"expected the census {PER_VERIFY[bucket]}")
+        say("bls", bucket=bucket, launches_per_verify=sum(got.values()),
+            by_op=json.dumps(got, separators=(",", ":")), census="equal")
+    say("bls", launches=json.dumps(launches, separators=(",", ":")))
+
+    times = {}
+    for bucket, rec_t in sorted(CB.TIMES.items()):
+        host, dev = rec_t["host_pack"], rec_t["device"]
+        wall = [h + d for h, d in zip(host, dev)]
+        times[bucket] = dict(
+            verifies=len(wall), wall_s=statistics.median(wall),
+            host_pack_s=statistics.median(host), device_s=statistics.median(dev))
+        say("bls", bucket=bucket, card=repr(card), verifies=len(wall),
+            wall_s=",".join(f"{w:.4f}" for w in wall),
+            host_pack_s=",".join(f"{h:.4f}" for h in host),
+            device_s=",".join(f"{d:.4f}" for d in dev))
+    wall_1024 = statistics.median(walls)
+    say("bls", bucket=1024, card=repr(card), front_wall_s=",".join(f"{w:.4f}" for w in walls),
+        sets_per_s=f"{len(gossip) / wall_1024:.1f}")
+    share = _device_share(
+        lambda: bls.verify_signature_sets(gossip, backend="cuda", rand_scalars=rs), wall_1024)
+    say("bls", bucket=1024, card=repr(card), verify_device_share=share)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -720,13 +1045,17 @@ def main() -> int:
     timed("build", phase_build)
     per_kernel = timed("kernels", phase_kernels)
     timed("pairing128", phase_pairing128)
-    launches = timed("e2e", phase_e2e)
+    launches_kzg = timed("e2e", phase_e2e)
+    per_bls, launches = timed("bls", lambda: phase_bls(card))
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        k = per_kernel[name]
+        k = {**per_kernel.get(name, {}), **per_bls.get(name, {})}
+        k["max_abs_err"] = max(per_kernel.get(name, {}).get("max_abs_err", 0),
+                               per_bls[name]["max_abs_err"])
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": k["max_abs_err"],
+            "launches": launches[name], "launches_kzg": launches_kzg.get(name, 0),
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })

@@ -45,6 +45,39 @@ def tower_constants_from_reference(arrays: dict) -> dict:
     return out
 
 
+def htc_constants_from_reference(arrays: dict) -> dict:
+    """The reference's hash-to-G2, psi and verify constants -> the port's
+    names: from ops/lane/htc.py the packed _A, _B, _Z, _NEG_B, _ZA, _Z3,
+    _C2, _ROOTS (numpy arrays), the isogeny lists _ISO_XNUM, _ISO_XDEN,
+    _ISO_YNUM, _ISO_YDEN, the chain's _E1, _E0 (ints) and _WIN_IDX; the psi
+    constants (ops/lane/jacobian.py `_psi_consts()`) as _PSI_CX, _PSI_CY;
+    and backends/tpu.py's _G1_GEN_NEG_X, _G1_GEN_NEG_Y. Returns int32 CPU
+    tensors (the isogeny lists stacked on a new leading axis), ints, and
+    the window indices as a list of ints, under the names without their
+    leading underscore."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32).copy())
+
+    out = {}
+    for name in ("_A", "_B", "_Z", "_NEG_B", "_ZA", "_Z3", "_C2", "_ROOTS",
+                 "_PSI_CX", "_PSI_CY", "_G1_GEN_NEG_X", "_G1_GEN_NEG_Y"):
+        out[name[1:]] = t(arrays[name])
+    for name in ("_ISO_XNUM", "_ISO_XDEN", "_ISO_YNUM", "_ISO_YDEN"):
+        out[name[1:]] = torch.stack([t(a) for a in arrays[name]])
+    out["E1"], out["E0"] = int(arrays["_E1"]), int(arrays["_E0"])
+    out["WIN_IDX"] = [int(i) for i in np.asarray(arrays["_WIN_IDX"])]
+    return out
+
+
+def batch_from_reference(args) -> tuple:
+    """The reference `prepare_batch` output (apk_x, apk_y, sig_x, sig_y,
+    t0, t1, rbits, pad; numpy or jax arrays) -> the port's CPU tensors:
+    int32, and pad as bool."""
+    *ints, pad = (np.asarray(a) for a in args)
+    return (*(torch.from_numpy(a.astype(np.int32)) for a in ints),
+            torch.from_numpy(pad.astype(bool)))
+
+
 def setup_from_reference(g1_lagrange, g2_tau, roots) -> TrustedSetup:
     """The port's TrustedSetup over the reference setup's Lagrange basis,
     [tau]G2 and domain (plain ints and tuples), with its packed CPU basis

@@ -194,33 +194,6 @@ __device__ __noinline__ void fp_sqr(int* out, const int* a) {
 
 __device__ __noinline__ void fp_reduce_light(int* x) { reduce_light_body(x); }
 
-// ---------------------------------------------------------- lazy glue
-__device__ __forceinline__ void fp_copy(int* out, const int* a) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) out[i] = a[i];
-}
-
-// out = ca*a + cb*b + cc*c, limb by limb (the bodies' lazy sums)
-__device__ __forceinline__ void fp_lin3(int* out, int ca, const int* a, int cb,
-                                        const int* b, int cc, const int* c) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) out[i] = ca * a[i] + cb * b[i] + cc * c[i];
-}
-
-__device__ __forceinline__ void fp_lin2(int* out, int ca, const int* a, int cb,
-                                        const int* b) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) out[i] = ca * a[i] + cb * b[i];
-}
-
-// structural zero (`_is_zero`): every limb exactly 0, not === 0 mod p
-__device__ __forceinline__ bool fp_is_zero(const int* a) {
-  int acc = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) acc |= a[i];
-  return acc == 0;
-}
-
 // ---------------------------------------------------------- global I/O
 // Element (k, s) of a [K, W, S] batch: limb i at (k*W + i)*S + s.
 __device__ __forceinline__ void load_elem(int* out, const int* __restrict__ g,

@@ -1,60 +1,53 @@
-// K3: `jac_dbl_f1`, Jacobian doubling (dbl-2009-l) over Fp.
+// K3, K14: `jac_dbl_f1` and `jac_dbl_f2`, Jacobian doubling (dbl-2009-l)
+// over Fp (G1) and over Fp2 (G2), one entry each over `lh::jac_dbl<F>`
+// (jac.cuh).
 //
-// Replaces the reference's Pallas kernel `jac_dbl_f1`
-// (lighthouse_tpu/ops/lane/jacobian.py `_dbl_f1_body` -> `_dbl_body`,
-// f2=False): 5 squarings, 2 products and 3 light reductions per point.
+// Replace the reference's Pallas kernels `jac_dbl_f1` and `jac_dbl_f2`
+// (lighthouse_tpu/ops/lane/jacobian.py:163-164, `_dbl_f1_body` /
+// `_dbl_f2_body` -> `_dbl_body`): 5 squarings, 2 products and 3 light
+// reductions per point, in the field of the point.
 //
-// Bound on the H100: integer operations (7 Fp products, ~50,000 int32
-// operations per point, against 864 bytes in and out). Design: one thread
-// per lane element; the coordinates and temporaries live in the thread's
-// local memory (L1-resident) and each product runs out of line with its
-// own limbs in registers (fp_mul / fp_sqr in fp_lane.cuh), so the code
-// holds one copy of the product. The spill this costs is reported by
-// `nvcc -Xptxas -v` at build time.
-#include "fp_lane.cuh"
+// Bound on the H100: integer operations (over Fp 7 Fp products, ~50,000
+// int32 operations per point against 864 bytes in and out; over Fp2 each
+// square is 2 and each product 3 Fp products, 16 in all, against 1,728
+// bytes). Design: one thread per lane element; the coordinates and
+// temporaries live in the thread's local memory (L1-resident), the body runs
+// out of line and each product in the out-of-line fp_mul with its limbs in
+// registers, so the code holds one copy of the product. The spill this costs
+// is reported by `nvcc -Xptxas -v` at build time.
+#include "jac.cuh"
 
 namespace {
 
-using lh::W;
-
-__device__ void dbl_body(const int* X, const int* Y, const int* Z, int* X3,
-                         int* Y3, int* Z3) {
-  int A[W], Bv[W], Cv[W], D[W], E[W], t[W], u[W];
-  lh::fp_sqr(A, X);
-  lh::fp_sqr(Bv, Y);
-  lh::fp_sqr(Cv, Bv);
-  lh::fp_lin2(t, 1, X, 1, Bv);            // X + B
-  lh::fp_sqr(u, t);
-  lh::fp_lin3(D, 1, u, -1, A, -1, Cv);    // S(X + B) - A - C
-  lh::fp_reduce_light(D);
-  lh::fp_lin2(D, 1, D, 1, D);             // D + D
-  lh::fp_lin2(E, 3, A, 0, A);             // A + A + A
-  lh::fp_sqr(u, E);                       // F
-  lh::fp_lin2(X3, 1, u, -2, D);           // F - D - D
-  lh::fp_reduce_light(X3);
-  lh::fp_lin2(t, 1, D, -1, X3);           // D - X3
-  lh::fp_mul(u, E, t);
-  lh::fp_lin2(Y3, 1, u, -8, Cv);          // M(E, D - X3) - 8 C
-  lh::fp_reduce_light(Y3);
-  lh::fp_mul(u, Y, Z);
-  lh::fp_lin2(Z3, 2, u, 0, u);            // 2 M(Y, Z)
-  lh::fp_reduce_light(Z3);
+template <class F, int C>
+__device__ __forceinline__ void dbl_entry(const int* x, const int* y,
+                                          const int* z, int* ox, int* oy,
+                                          int* oz, int K, int S) {
+  constexpr int N = F::N;
+  long k, s;
+  if (!lh::lane_index(K, S, &k, &s)) return;
+  int X[N], Y[N], Z[N], X3[N], Y3[N], Z3[N];
+  lh::load_rows<C>(X, x, k, s, S);
+  lh::load_rows<C>(Y, y, k, s, S);
+  lh::load_rows<C>(Z, z, k, s, S);
+  lh::jac_dbl<F>(X, Y, Z, X3, Y3, Z3);
+  lh::store_rows<C>(ox, X3, k, s, S);
+  lh::store_rows<C>(oy, Y3, k, s, S);
+  lh::store_rows<C>(oz, Z3, k, s, S);
 }
 
 __global__ void __launch_bounds__(lh::THREADS)
     k_jac_dbl_f1(const int* __restrict__ x, const int* __restrict__ y,
                  const int* __restrict__ z, int* __restrict__ ox,
                  int* __restrict__ oy, int* __restrict__ oz, int K, int S) {
-  long base;
-  if (!lh::elem_index(K, S, &base)) return;
-  int X[W], Y[W], Z[W], X3[W], Y3[W], Z3[W];
-  lh::load_elem(X, x, base, S);
-  lh::load_elem(Y, y, base, S);
-  lh::load_elem(Z, z, base, S);
-  dbl_body(X, Y, Z, X3, Y3, Z3);
-  lh::store_elem(ox, X3, base, S);
-  lh::store_elem(oy, Y3, base, S);
-  lh::store_elem(oz, Z3, base, S);
+  dbl_entry<lh::Fp1, 1>(x, y, z, ox, oy, oz, K, S);
+}
+
+__global__ void __launch_bounds__(lh::THREADS)
+    k_jac_dbl_f2(const int* __restrict__ x, const int* __restrict__ y,
+                 const int* __restrict__ z, int* __restrict__ ox,
+                 int* __restrict__ oy, int* __restrict__ oz, int K, int S) {
+  dbl_entry<lh::Fp2, 2>(x, y, z, ox, oy, oz, K, S);
 }
 
 }  // namespace
@@ -71,6 +64,16 @@ LH_EXPORT int lh_jac_dbl_f1(const void* x, const void* y, const void* z,
                             void* ox, void* oy, void* oz, int K, int S,
                             void* stream) {
   k_jac_dbl_f1<<<lh::blocks_for(K, S), lh::THREADS, 0,
+                 (cudaStream_t)stream>>>((const int*)x, (const int*)y,
+                                         (const int*)z, (int*)ox, (int*)oy,
+                                         (int*)oz, K, S);
+  return (int)cudaGetLastError();
+}
+
+LH_EXPORT int lh_jac_dbl_f2(const void* x, const void* y, const void* z,
+                            void* ox, void* oy, void* oz, int K, int S,
+                            void* stream) {
+  k_jac_dbl_f2<<<lh::blocks_for(K, S), lh::THREADS, 0,
                  (cudaStream_t)stream>>>((const int*)x, (const int*)y,
                                          (const int*)z, (int*)ox, (int*)oy,
                                          (int*)oz, K, S);

@@ -1,0 +1,138 @@
+"""Windowed exponentiation and the windowed scalar ladder, with CUDA kernels.
+
+Port of lighthouse_tpu/ops/lane/chains.py:
+
+- `pow_const_w4` / `inv` / `f2inv`: MSB-first 4-bit windowed Fermat
+  chains (a 16-entry power table, then 4 squarings and one table product
+  per window). The reference scans the static digits with a dynamic table
+  index; here the loop runs in Python and indexes the table by the digit.
+  The calls, and so the limbs, are the reference's.
+- `scalar_mul_w2`: the MSB-first 2-bit windowed ladder (G1 or G2) of the
+  64-bit random-linear-combination scalars: acc <- [4]acc + T[digit] with
+  the table {P, 2P, 3P}, one kernel per window (`g1_win_step` /
+  `g2_win_step`, csrc/chains.cu: 2 doublings, the 3-way table select by
+  the lane's digit, one branchless add, and the digit-0 pass-through of
+  the doubled accumulator). `_win_step_body` is their plain PyTorch
+  version.
+
+Collision safety (the reference's argument): for a base in the r-torsion,
+once acc is not infinity its scalar prefix k gives acc = [4k]P with
+0 < 4k < 2^66 << r and 4k > 3 >= digit, so the branchless add never meets
+the H == 0 doubling case; the infinity cases are structural inside the
+add. A base outside the r-torsion can collide, but every caller gates the
+verdict on the subgroup check.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...crypto.bls.params import P
+from . import fp, jacobian as J
+
+W = fp.W
+
+
+# ---------------------------------------------------------------- fp pow
+
+
+def _pow_table(a):
+    """[16, ..., W, S] powers a^0..a^15: 1 sqr + 3 stacked mul calls."""
+    one = torch.from_numpy(fp.ONE).to(a.device)[:, None].expand(a.shape)
+    a1 = fp.norm3_x(a, site="chains.pow_table.entry")
+    a2 = fp.sqr(a1)
+    p34 = fp.mul(torch.stack([a2, a2]), torch.stack([a1, a2]))
+    a3, a4 = p34[0], p34[1]
+    p58 = fp.mul(torch.stack([a4, a4, a4, a4]), torch.stack([a1, a2, a3, a4]))
+    a5, a6, a7, a8 = (p58[k] for k in range(4))
+    p915 = fp.mul(torch.stack([a8] * 7), torch.stack([a1, a2, a3, a4, a5, a6, a7]))
+    return torch.stack(
+        [one, a1, a2, a3, a4, a5, a6, a7, a8, *(p915[k] for k in range(7))]
+    )
+
+
+def window_digits(exponent: int) -> list:
+    """The 4-bit windows of a static exponent, most significant first."""
+    nw = (max(exponent.bit_length(), 1) + 3) // 4
+    return [(exponent >> (4 * k)) & 15 for k in reversed(range(nw))]
+
+
+def pow_const_w4(a, exponent: int):
+    """a^e in Fp for a static e: MSB-first 4-bit windows from the table's
+    1, each window 4 squarings and one product with the table entry."""
+    table = _pow_table(a)
+    acc = table[0]
+    for d in window_digits(exponent):
+        acc = fp.sqr(fp.sqr(fp.sqr(fp.sqr(acc))))
+        acc = fp.mul(acc, table[d])
+    return acc
+
+
+def inv(a):
+    """a^(p-2): windowed Fermat inversion (0 maps to 0)."""
+    return pow_const_w4(a, P - 2)
+
+
+def f2inv(a):
+    """1/(a0 + a1 u) through one windowed Fp inversion of the norm."""
+    a = fp.norm3_x(a, site="chains.f2inv.entry")
+    a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
+    sq = fp.mul(torch.stack([a0, a1], -3), torch.stack([a0, a1], -3))
+    norm = sq[..., 0, :, :] + sq[..., 1, :, :]
+    ninv = inv(norm)
+    return fp.mul(torch.stack([a0, -a1], -3), ninv[..., None, :, :])
+
+
+# ---------------------------------------------------------------- ladder
+
+
+def _win_step_body(
+    folds, topf, Xa, Ya, Za, X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, dig, f2
+):
+    """acc <- [4]acc + T[digit]: 2 doublings, the 3-way table select, one
+    branchless add (on every lane), and the digit-0 pass-through of the
+    doubled accumulator. dig [..., 1, S] int32 in 0..3."""
+    x, y, z = J._dbl_body(folds, topf, Xa, Ya, Za, f2=f2)
+    x, y, z = J._dbl_body(folds, topf, x, y, z, f2=f2)
+    d = dig[..., 0, :]
+    nc = (None,) * (2 if f2 else 1) + (slice(None),)
+    pick2 = (d == 2)[(..., *nc)]
+    pick3 = (d == 3)[(..., *nc)]
+    ex = torch.where(pick3, X3, torch.where(pick2, X2, X1))
+    ey = torch.where(pick3, Y3, torch.where(pick2, Y2, Y1))
+    ez = torch.where(pick3, Z3, torch.where(pick2, Z2, Z1))
+    added = J._add_body(folds, topf, x, y, z, ex, ey, ez, f2=f2)
+    keep = (d == 0)[(..., *nc)]
+    return tuple(torch.where(keep, a, o) for a, o in zip((x, y, z), added))
+
+
+def _win_step_f1_body(folds, topf, *args):
+    return _win_step_body(folds, topf, *args, f2=False)
+
+
+def _win_step_f2_body(folds, topf, *args):
+    return _win_step_body(folds, topf, *args, f2=True)
+
+
+_win_step = {
+    "fp": fp.KernelOp(_win_step_f1_body, "g1_win_step", "lh_g1_win_step"),
+    "fp2": fp.KernelOp(_win_step_f2_body, "g2_win_step", "lh_g2_win_step"),
+}
+
+
+def scalar_mul_w2(ops, base, bits):
+    """[k]base (ops = jacobian.FP1 / FP2) for per-lane 64-bit scalars;
+    bits [64, S] LSB-first int32 (the jacobian.scalars_to_bits layout).
+    MSB-first 2-bit windowed Horner with the table {P, 2P, 3P}, from the
+    infinity accumulator."""
+    nbits = bits.shape[0]
+    assert nbits % 2 == 0
+    t1 = base
+    t2 = J.double(ops, t1)
+    t3 = J.add(ops, t2, t1, exact=True)
+    digs = (bits[0::2] + 2 * bits[1::2]).flip(0)    # [nbits/2, S] MSB-first
+    acc = J.infinity_like(ops, base)
+    kern = _win_step[ops.name]
+    for k in range(digs.shape[0]):
+        acc = kern(*acc, *t1, *t2, *t3, digs[k : k + 1])
+    return acc

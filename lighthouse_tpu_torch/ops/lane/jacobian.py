@@ -1,14 +1,20 @@
-"""Lane-major Jacobian group ops for G1 (over Fp), with CUDA kernels.
+"""Lane-major Jacobian group ops for G1 (over Fp) and G2 (over Fp2), with
+CUDA kernels.
 
-Port of the G1 half of lighthouse_tpu/ops/lane/jacobian.py: the same
-formulas (dbl-2009-l, add-2007-bl), the same completeness scheme
-(structural infinity Z == 0, limb for limb) and the same op table. `double`
-and the branchless `add` each launch ONE kernel on CUDA tensors
-(`jac_dbl_f1`, `jac_add_f1`, csrc/jac_dbl.cu and csrc/jac_add.cu); the
-bodies below are their plain PyTorch versions. `add(exact=True)` composes
-the collision check from `mul`/`sqr`/`eq_zero` around the kernel.
+Port of lighthouse_tpu/ops/lane/jacobian.py: the same formulas (dbl-2009-l,
+add-2007-bl), the same completeness scheme (structural infinity: every limb
+of Z exactly 0, of both components over Fp2) and the same op tables. The
+bodies are field-generic, as the reference's (`f2` flag). `double` and the
+branchless `add` each launch ONE kernel on CUDA tensors (`jac_dbl_f1`,
+`jac_add_f1`, `jac_dbl_f2`, `jac_add_f2`: csrc/jac_dbl.cu and
+csrc/jac_add.cu over csrc/jac.cuh); the bodies below are their plain
+PyTorch versions. `add(exact=True)` composes the collision check from
+`mul`/`sqr`/`eq_zero` around the kernel. The static-scalar ladder is a
+Python loop over the scalar's bits, the reference's scan + cond call for
+call.
 
-Points are (X, Y, Z) tuples of lane-major field tensors [..., W, S].
+Points are (X, Y, Z) tuples of lane-major field tensors: Fp [..., W, S],
+Fp2 [..., 2, W, S].
 """
 
 from __future__ import annotations
@@ -18,35 +24,46 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ...crypto.bls import fields as FF
 from ...crypto.bls.params import P
-from . import fp
+from . import fp, tower
 
 W = fp.W
 
 
-def _wh(flag, a, b):
-    """Select by a [..., S] lane flag over field tensors [..., W, S]."""
-    return torch.where(flag[..., None, :], a, b)
+def _wh(flag, a, b, ncomp: int = 1):
+    """Select by a [..., S] lane flag over field tensors with `ncomp`
+    element dims before the lane axis ([..., W, S]: 1; [..., 2, W, S]: 2)."""
+    return torch.where(flag[(..., *([None] * ncomp), slice(None))], a, b)
 
 
-def _is_zero(Z):
-    """Structural infinity: every limb exactly 0 (not === 0 mod p)."""
-    return (Z == 0).all(dim=-2)
+def _is_zero(Z, ncomp: int = 1):
+    """Structural infinity: every limb exactly 0 (not === 0 mod p), over
+    all `ncomp` element dims. Shape [..., S]."""
+    return (Z == 0).all(dim=-2) if ncomp == 1 else (Z == 0).flatten(-3, -2).all(dim=-2)
 
 
 # ------------------------------------------------------------ plain bodies
 
 
-def _dbl_body(folds, topf, X, Y, Z):
-    def S(v):
-        return fp._sqr_fn(folds, topf, v)
+def _field(folds, topf, f2: bool):
+    """(S, M, RL) of the bodies: square, product and light reduction over
+    Fp (`_sqr_fn`, `_mul_fn`) or Fp2 (`_f2sqr_body`, `_f2mul_body`)."""
+    if f2:
+        return (
+            lambda v: tower._f2sqr_body(folds, topf, v),
+            lambda u, v: tower._f2mul_body(folds, topf, u, v),
+            lambda v: fp._reduce_light_body(v, folds, topf),
+        )
+    return (
+        lambda v: fp._sqr_fn(folds, topf, v),
+        lambda u, v: fp._mul_fn(folds, topf, u, v),
+        lambda v: fp._reduce_light_body(v, folds, topf),
+    )
 
-    def M(u, v):
-        return fp._mul_fn(folds, topf, u, v)
 
-    def RL(v):
-        return fp._reduce_light_body(v, folds, topf)
-
+def _dbl_body(folds, topf, X, Y, Z, f2: bool = False):
+    S, M, RL = _field(folds, topf, f2)
     A = S(X)
     Bv = S(Y)
     Cv = S(Bv)
@@ -60,16 +77,8 @@ def _dbl_body(folds, topf, X, Y, Z):
     return X3, Y3, Z3
 
 
-def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2):
-    def S(v):
-        return fp._sqr_fn(folds, topf, v)
-
-    def M(u, v):
-        return fp._mul_fn(folds, topf, u, v)
-
-    def RL(v):
-        return fp._reduce_light_body(v, folds, topf)
-
+def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    S, M, RL = _field(folds, topf, f2)
     Z1Z1 = S(Z1)
     Z2Z2 = S(Z2)
     U1 = M(X1, Z2Z2)
@@ -77,7 +86,7 @@ def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2):
     S1 = M(M(Y1, Z2), Z2Z2)
     S2 = M(M(Y2, Z1), Z1Z1)
     H = U2 - U1
-    I = S(H + H)
+    I = S(H + H)  # noqa: E741  (the formula's name)
     J = M(H, I)
     r = 2 * (S2 - S1)
     V = M(U1, I)
@@ -85,29 +94,65 @@ def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2):
     Y3 = RL(M(r, V - X3) - 2 * M(S1, J))
     Z3 = RL(M(RL(S(Z1 + Z2) - Z1Z1 - Z2Z2), H))
     # structural-infinity selection, inside the kernel
-    p1_inf = _is_zero(Z1)
-    p2_inf = _is_zero(Z2)
+    nc = 2 if f2 else 1
+    p1_inf = _is_zero(Z1, nc)
+    p2_inf = _is_zero(Z2, nc)
     return tuple(
-        _wh(p1_inf, b, _wh(p2_inf, a, o))
+        _wh(p1_inf, b, _wh(p2_inf, a, o, nc), nc)
         for a, b, o in ((X1, X2, X3), (Y1, Y2, Y3), (Z1, Z2, Z3))
     )
 
 
-_dbl_f1 = fp.KernelOp(_dbl_body, "jac_dbl_f1", "lh_jac_dbl_f1")
-_add_f1 = fp.KernelOp(_add_body, "jac_add_f1", "lh_jac_add_f1")
+def _dbl_f1_body(folds, topf, X, Y, Z):
+    return _dbl_body(folds, topf, X, Y, Z, f2=False)
+
+
+def _dbl_f2_body(folds, topf, X, Y, Z):
+    return _dbl_body(folds, topf, X, Y, Z, f2=True)
+
+
+def _add_f1_body(folds, topf, *args):
+    return _add_body(folds, topf, *args, f2=False)
+
+
+def _add_f2_body(folds, topf, *args):
+    return _add_body(folds, topf, *args, f2=True)
+
+
+_dbl_f1 = fp.KernelOp(_dbl_f1_body, "jac_dbl_f1", "lh_jac_dbl_f1")
+_dbl_f2 = fp.KernelOp(_dbl_f2_body, "jac_dbl_f2", "lh_jac_dbl_f2")
+_add_f1 = fp.KernelOp(_add_f1_body, "jac_add_f1", "lh_jac_add_f1")
+_add_f2 = fp.KernelOp(_add_f2_body, "jac_add_f2", "lh_jac_add_f2")
 
 
 FP1 = SimpleNamespace(
+    name="fp",
+    ndim=1,
     mul=fp.mul,
     sqr=fp.sqr,
     eq_zero=fp.eq_zero,
-    is_zero_struct=_is_zero,
-    wh=_wh,
+    is_zero_struct=lambda a: _is_zero(a, 1),
+    wh=lambda f, a, b: _wh(f, a, b, 1),
     zeros=lambda shape, S, device: torch.zeros(
         (*shape, W, S), dtype=torch.int32, device=device
     ),
     dbl=_dbl_f1,
     addk=_add_f1,
+)
+
+FP2 = SimpleNamespace(
+    name="fp2",
+    ndim=2,
+    mul=tower.f2mul,
+    sqr=tower.f2sqr,
+    eq_zero=tower.f2_eq_zero,
+    is_zero_struct=lambda a: _is_zero(a, 2),
+    wh=lambda f, a, b: _wh(f, a, b, 2),
+    zeros=lambda shape, S, device: torch.zeros(
+        (*shape, 2, W, S), dtype=torch.int32, device=device
+    ),
+    dbl=_dbl_f2,
+    addk=_add_f2,
 )
 
 
@@ -119,6 +164,15 @@ def pack_g1(points, device) -> tuple:
     xs = fp.pack([0 if pt is None else pt[0] for pt in points])
     ys = fp.pack([0 if pt is None else pt[1] for pt in points])
     zs = fp.pack([0 if pt is None else 1 for pt in points])
+    return tuple(torch.from_numpy(a).to(device) for a in (xs, ys, zs))
+
+
+def pack_g2(points, device) -> tuple:
+    """Affine G2 points/None -> (X, Y, Z) [2, W, n] tensors; None -> Z = 0."""
+    z2, one2 = (0, 0), (1, 0)
+    xs = tower.f2_pack_many([z2 if pt is None else pt[0] for pt in points])
+    ys = tower.f2_pack_many([z2 if pt is None else pt[1] for pt in points])
+    zs = tower.f2_pack_many([z2 if pt is None else one2 for pt in points])
     return tuple(torch.from_numpy(a).to(device) for a in (xs, ys, zs))
 
 
@@ -141,7 +195,33 @@ def unpack_g1(pt):
     return out
 
 
+def unpack_g2(pt):
+    """Jacobian G2 point(s) [2, W, S] -> list of affine tuples/None (host)."""
+    X, Y, Z = (a.cpu().numpy() for a in pt)
+
+    def f2(a, s):
+        return (fp.from_limbs(a[0, :, s]), fp.from_limbs(a[1, :, s]))
+
+    out = []
+    for s in range(X.shape[-1]):
+        z = f2(Z, s)
+        if z == (0, 0):
+            out.append(None)
+            continue
+        zi = FF.f2inv(z)
+        zi2 = FF.f2sqr(zi)
+        out.append((FF.f2mul(f2(X, s), zi2), FF.f2mul(f2(Y, s), FF.f2mul(zi2, zi))))
+    return out
+
+
 # ---------------------------------------------------------------- core ops
+
+
+def infinity_like(ops, base):
+    """The point at infinity (Z = 0) in the shape of the point `base`."""
+    S = base[0].shape[-1]
+    shape = base[0].shape[: base[0].dim() - ops.ndim - 1]
+    return tuple(ops.zeros(shape, S, base[0].device) for _ in range(3))
 
 
 def double(ops, p):
@@ -176,6 +256,22 @@ def neg(ops, p):
     return (p[0], -p[1], p[2])
 
 
+def scalar_mul_static(ops, base, scalar: int):
+    """[scalar]base for a STATIC scalar > 0: a loop over its bits, LSB
+    first, from the infinity accumulator: `add` at every set bit (the
+    first one into infinity included), `double` of the addend at every
+    bit (the last one included). The reference's scan with the add under
+    lax.cond makes the same calls."""
+    assert scalar > 0
+    acc = infinity_like(ops, base)
+    addend = base
+    for i in range(scalar.bit_length()):
+        if (scalar >> i) & 1:
+            acc = add(ops, acc, addend)
+        addend = double(ops, addend)
+    return acc
+
+
 def lane_sum(ops, p, n: int):
     """Complete sum over the LANE axis: [..., W, S] -> [..., W, 1].
 
@@ -207,3 +303,47 @@ def scalars_to_bits(scalars, nbits: int) -> np.ndarray:
         for j in range(nbits):
             out[j, i] = (s >> j) & 1
     return out
+
+
+# ---------------------------------------------------------------- G2 psi
+
+PSI_CX = tower.f2_pack(FF.PSI_CX)  # [2, W, 1]
+PSI_CY = tower.f2_pack(FF.PSI_CY)
+_DEVICE_CONSTS: dict = {}
+
+
+def _psi_consts(device):
+    device = torch.device(device)
+    c = _DEVICE_CONSTS.get(device)
+    if c is None:
+        c = _DEVICE_CONSTS[device] = tuple(
+            torch.from_numpy(a).to(device) for a in (PSI_CX, PSI_CY)
+        )
+    return c
+
+
+def psi(p):
+    """G2 twist endomorphism: psi(X, Y, Z) = (cx conj(X), cy conj(Y), conj(Z))."""
+    X, Y, Z = p
+    cx, cy = _psi_consts(X.device)
+    S = X.shape[-1]
+    return (
+        tower.f2mul(tower.f2conj(X), tower.bcast(cx, S)),
+        tower.f2mul(tower.f2conj(Y), tower.bcast(cy, S)),
+        tower.f2conj(Z),
+    )
+
+
+def jac_eq(ops, p1, p2):
+    """Exact equality with infinity handling (both infinity: True)."""
+    X1, Y1, Z1 = p1
+    X2, Y2, Z2 = p2
+    Z1Z1 = ops.sqr(Z1)
+    Z2Z2 = ops.sqr(Z2)
+    ex = ops.eq_zero(ops.mul(X1, Z2Z2) - ops.mul(X2, Z1Z1))
+    ey = ops.eq_zero(
+        ops.mul(ops.mul(Y1, Z2), Z2Z2) - ops.mul(ops.mul(Y2, Z1), Z1Z1)
+    )
+    i1 = ops.is_zero_struct(Z1)
+    i2 = ops.is_zero_struct(Z2)
+    return torch.where(i1 | i2, i1 & i2, ex & ey)

@@ -11,7 +11,9 @@ Every C entry takes its operands as [K, *comp, W, S] int32 pointers plus
 K, S and the CUDA stream, launches on that stream, and returns
 cudaGetLastError(); `launch` raises on a non-zero code. `comp` is the
 operand's field: () for Fp, (2,) for Fp2, (3, 2) for Fp6, (2, 3, 2) for
-Fp12, so one lane element of an Fp12 operand is 12 x W limbs.
+Fp12, so one lane element of an Fp12 operand is 12 x W limbs. An operand
+of kind ROW is no field element but one int32 per lane element (the
+windowed ladders' digit), [K, 1, S].
 """
 
 from __future__ import annotations
@@ -36,15 +38,18 @@ BUILD_ROOT = _PKG / "build" / "kernels"
 SOURCES = {
     "fp_mul": "fp_mul.cu",        # mul, sqr
     "fp_canon": "fp_canon.cu",    # canon_reduce
-    "jac_dbl": "jac_dbl.cu",      # jac_dbl_f1
-    "jac_add": "jac_add.cu",      # jac_add_f1
+    "jac_dbl": "jac_dbl.cu",      # jac_dbl_f1, jac_dbl_f2
+    "jac_add": "jac_add.cu",      # jac_add_f1, jac_add_f2
     "tower": "tower.cu",          # reduce_light, f2mul, f2sqr, f6mul, f12mul
     "miller": "miller.cu",        # miller_dbl_iter, miller_add_iter, cyc_sqr
+    "chains": "chains.cu",        # g1_win_step, g2_win_step
 }
-HEADERS = ("fp_lane.cuh", "tower.cuh")
+HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh")
 
 # component shape of each field's lane element
 FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)
+# one int32 per lane element: [*lead, 1, S]
+ROW = "row"
 
 # C entry -> (library, input fields, output fields)
 ENTRIES = {
@@ -53,6 +58,11 @@ ENTRIES = {
     "lh_fp_canon_reduce": ("fp_canon", (FP,), (FP,)),
     "lh_jac_dbl_f1": ("jac_dbl", (FP,) * 3, (FP,) * 3),
     "lh_jac_add_f1": ("jac_add", (FP,) * 6, (FP,) * 3),
+    "lh_jac_dbl_f2": ("jac_dbl", (FP2,) * 3, (FP2,) * 3),
+    "lh_jac_add_f2": ("jac_add", (FP2,) * 6, (FP2,) * 3),
+    # acc, T1, T2, T3 (a point each), digit -> acc
+    "lh_g1_win_step": ("chains", (FP,) * 12 + (ROW,), (FP,) * 3),
+    "lh_g2_win_step": ("chains", (FP2,) * 12 + (ROW,), (FP2,) * 3),
     "lh_fp_reduce_light": ("tower", (FP,), (FP,)),
     "lh_f2mul": ("tower", (FP2, FP2), (FP2,)),
     "lh_f2sqr": ("tower", (FP2,), (FP2,)),
@@ -192,16 +202,22 @@ def libs() -> dict:
     return _LIBS
 
 
+def _elem(kind) -> tuple:
+    """The element dims between an operand's lead and its lane dim."""
+    return (1,) if kind == ROW else (*kind, W)
+
+
 def _prepare(arrays, fields):
-    """Split each operand [*lead, *comp, W, S] by its field's `comp`,
-    broadcast the leading (stack) dims and the lane dim S across all
-    operands, and check them: CUDA, int32. Returns contiguous tensors of
-    shape [*lead, *comp, W, S], the common lead and S."""
+    """Split each operand [*lead, *comp, W, S] by its field's `comp` (a ROW
+    operand: [*lead, 1, S]), broadcast the leading (stack) dims and the lane
+    dim S across all operands, and check them: CUDA, int32. Returns
+    contiguous tensors of shape [*lead, *elem, S], the common lead and S."""
     leads, lanes = [], []
-    for a, comp in zip(arrays, fields):
-        n = len(comp) + 2
-        if a.dim() < n or tuple(a.shape[-n:-1]) != (*comp, W):
-            want = ", ".join(map(str, (*comp, W)))
+    for a, kind in zip(arrays, fields):
+        elem = _elem(kind)
+        n = len(elem) + 1
+        if a.dim() < n or tuple(a.shape[-n:-1]) != elem:
+            want = ", ".join(map(str, elem))
             raise ValueError(f"operand shape {tuple(a.shape)} is not [..., {want}, S]")
         if a.device.type != "cuda":
             raise ValueError(f"operand on {a.device}, kernel needs CUDA")
@@ -212,7 +228,7 @@ def _prepare(arrays, fields):
     lead = torch.broadcast_shapes(*leads)
     (S,) = torch.broadcast_shapes(*lanes)
     arrays = [
-        a.expand(*lead, *comp, W, S).contiguous() for a, comp in zip(arrays, fields)
+        a.expand(*lead, *_elem(kind), S).contiguous() for a, kind in zip(arrays, fields)
     ]
     return arrays, lead, S
 

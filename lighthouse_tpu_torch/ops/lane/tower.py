@@ -231,6 +231,10 @@ def f2_eq(a, b):
     return fp.eq(a, b).all(dim=-2)
 
 
+def f2_eq_zero(a):
+    return fp.eq_zero(a).all(dim=-2)
+
+
 def f6sqr(a):
     return f6mul(a, a)
 

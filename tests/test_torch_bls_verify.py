@@ -1,0 +1,274 @@
+"""The port's BLS batch verification (crypto/bls/backends/cuda.py) on the CPU.
+
+Fast tier: host packing limb-equal to the reference's `prepare_batch`, the
+policy rejections, one valid 2-set verdict through `local_phase` +
+`finish_phase` on the packed batch cut to its 2 real lanes (against the
+`cpu` backend), the launches per verify at buckets 128 and 1024 equal to
+the reference's dispatch census op by op (with shape-only stand-ins for
+the kernels, as the reference's census runs).
+`crypto_heavy`: `local_phase` limb-equal to the reference's at 4 lanes, the
+verdict matrix of tests/test_tpu_backend.py on cut lanes, and one batch
+through the reference's own seam with the port registered as its "cuda"
+backend and the reference's dispatch hook set to raise. Tolerance: exact
+limbs, or the same verdict.
+"""
+
+import json
+from collections import Counter
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from lighthouse_tpu_torch import convert
+from lighthouse_tpu_torch.crypto import bls
+from lighthouse_tpu_torch.crypto.bls import curve as C
+from lighthouse_tpu_torch.crypto.bls import params
+from lighthouse_tpu_torch.crypto.bls.backends import cpu as CPU
+from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
+from lighthouse_tpu_torch.crypto.bls.keys import SecretKey, Signature, SignatureSet
+from lighthouse_tpu_torch.ops.lane import fp, kernels
+
+REPO = Path(__file__).resolve().parents[1]
+
+# launches per verify: the reference's dispatch census
+# (lighthouse_tpu.ops.costs.verify_kernel_costs), op by op
+_COMMON = {
+    "sqr": 1539, "mul": 543, "cyc_sqr": 315, "miller_dbl_iter": 126,
+    "g1_win_step": 32, "g2_win_step": 32, "reduce_light": 17, "miller_add_iter": 10,
+    "f6mul": 4, "jac_dbl_f1": 2, "jac_add_f1": 1,
+}
+CENSUS = {
+    128: {**_COMMON, "f2sqr": 428, "f2mul": 358, "jac_dbl_f2": 208, "f12mul": 43,
+          "canon_reduce": 38, "jac_add_f2": 32},
+    1024: {**_COMMON, "f2sqr": 434, "f2mul": 376, "jac_dbl_f2": 211, "f12mul": 46,
+           "canon_reduce": 44, "jac_add_f2": 35},
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def make_sets(n, same_msg=False):
+    """tests/test_tpu_backend.py's sets, from the port's keys."""
+    sets = []
+    for i in range(n):
+        sk = SecretKey.from_seed(bytes([i + 1, 7]) * 2)
+        msg = b"fixed" if same_msg else b"msg-%d" % i
+        sets.append(SignatureSet.single_pubkey(sk.sign(msg), sk.public_key(), msg))
+    return sets
+
+
+SCALARS = [0x1234_5678_9ABC_DEF1, 0xFFFF_FFFF_FFFF_FFFF, 3, 0x8000_0000_0000_0000]
+
+
+def packed(sets, scalars, lanes=None):
+    """prepare_batch's arrays as CPU tensors, cut to `lanes` real lanes."""
+    args = CB.to_device(CB.prepare_batch(sets, scalars), "cpu")
+    return args if lanes is None else tuple(a[..., :lanes] for a in args)
+
+
+def verify_cut(sets, scalars):
+    """The device verdict on the batch cut to its real lanes (False when
+    policy rejects it), as verify_signature_sets computes it."""
+    args = CB.prepare_batch(sets, scalars)
+    if args is None:
+        return False
+    return bool(CB.verify_core(*(a[..., : len(sets)] for a in CB.to_device(args, "cpu"))))
+
+
+# ------------------------------------------------ host packing and policy
+
+
+def test_prepare_batch_equals_reference():
+    from lighthouse_tpu.crypto.bls.backends import tpu as ref_tpu
+
+    sets = make_sets(3)
+    sets.append(SignatureSet.multiple_pubkeys(sets[0].signature,
+                                              sets[0].signing_keys + sets[1].signing_keys,
+                                              b"m"))
+    ref = convert.batch_from_reference(ref_tpu.prepare_batch(sets, SCALARS))
+    got = packed(sets, SCALARS)
+    assert len(got) == len(ref) == 8
+    for g, w in zip(got, ref):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[0].shape == (fp.W, 128) and got[7].tolist() == [False] * 4 + [True] * 124
+
+
+def test_policy_rejections():
+    one = make_sets(1)[0]
+    pk = one.signing_keys[0]
+    neg_pk = type(pk)(point=C.g1_neg(pk.point))
+    assert CB.prepare_batch([], []) is None
+    assert CB.prepare_batch([SignatureSet(one.signature, [], b"x")], [1]) is None
+    assert CB.prepare_batch(
+        [SignatureSet.single_pubkey(Signature(point=None), pk, one.message)], [1]) is None
+    assert CB.prepare_batch(
+        [SignatureSet.multiple_pubkeys(one.signature, [pk, neg_pk], one.message)], [1]) is None
+    for r in (0, 2**64):
+        with pytest.raises(ValueError, match="out of range"):
+            CB.prepare_batch([one], [r])
+    # rejected before any device work, also through the front
+    assert bls.verify_signature_sets([], backend="cuda", device="cpu") is False
+    assert bls.verify_signature_sets(
+        [SignatureSet(one.signature, [], b"x")], backend="cuda", device="cpu") is False
+
+
+def test_cuda_requested_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bls.verify_signature_sets(make_sets(1), rand_scalars=[5])
+    with pytest.raises(ValueError, match="no device"):
+        bls.verify_signature_sets(make_sets(1), backend="cpu", device="cpu")
+
+
+# ------------------------------------------------ the verdict
+
+
+def test_two_sets_verdict_equals_cpu():
+    sets, rs = make_sets(2), SCALARS[:2]
+    f_local, s_local, sub_ok = CB.local_phase(*packed(sets, rs, lanes=2))
+    assert f_local.shape == (2, 3, 2, fp.W, 1) and bool(sub_ok)
+    assert all(c.shape == (2, fp.W, 1) for c in s_local)
+    assert bool(CB.finish_phase(f_local, s_local, sub_ok)) is True
+    assert CPU.verify_signature_sets(sets, rs) is True
+
+
+# ------------------------------------------------ launches per verify
+
+
+def _census(S: int) -> Counter:
+    """Launches of one verify_core over S lanes, each kernel replaced by a
+    stand-in that returns zeros of the kernel's output shapes (the
+    path's control flow does not depend on the values)."""
+    counts = Counter()
+
+    def stand_in(op, *arrays):
+        counts[op.name] += 1
+        _, ins, outs = kernels.ENTRIES[op.symbol]
+        leads = [a.shape[: a.dim() - len(kernels._elem(k)) - 1] for a, k in zip(arrays, ins)]
+        lead = torch.broadcast_shapes(*leads)
+        lanes = max(a.shape[-1] for a in arrays)
+        res = [torch.zeros((*lead, *c, fp.W, lanes), dtype=torch.int32) for c in outs]
+        return res[0] if len(res) == 1 else tuple(res)
+
+    args = (
+        torch.zeros(fp.W, S, dtype=torch.int32), torch.zeros(fp.W, S, dtype=torch.int32),
+        *(torch.zeros(2, fp.W, S, dtype=torch.int32) for _ in range(4)),
+        torch.zeros(64, S, dtype=torch.int32), torch.zeros(S, dtype=torch.bool),
+    )
+    mp = pytest.MonkeyPatch()
+    mp.setattr(fp.KernelOp, "__call__", stand_in)
+    try:
+        CB.verify_core(*args)
+    finally:
+        mp.undo()
+    return counts
+
+
+@pytest.mark.parametrize("bucket", [128, 1024])
+def test_launches_per_verify_equal_reference_census(bucket):
+    counts = _census(bucket)
+    assert dict(counts) == CENSUS[bucket]
+    budgets = json.loads((REPO / "tests" / "budgets" / "kernel_costs.json").read_text())
+    assert sum(counts.values()) == budgets["buckets"][str(bucket)]["kernel_dispatches"]
+
+
+# ------------------------------------------------ crypto_heavy
+
+
+@pytest.mark.crypto_heavy
+def test_local_phase_equals_reference_limbs():
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.crypto.bls.backends import tpu as ref_tpu
+
+    sets, rs = make_sets(4), SCALARS
+    args = packed(sets, rs, lanes=4)
+    got = CB.local_phase(*args)
+    want = ref_tpu.local_phase(*(jnp.asarray(a.numpy()) for a in args))
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1], want[1], strict=True):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert bool(got[2]) is bool(want[2]) is True
+
+
+def _non_subgroup_point():
+    from lighthouse_tpu_torch.crypto.bls import fields as F
+
+    x = (1, 0)
+    while True:
+        y = F.f2sqrt(F.f2add(F.f2mul(F.f2sqr(x), x), C._B2))
+        if y is not None and not C.g2_subgroup_check((x, y)):
+            return (x, y)
+        x = (x[0] + 1, 0)
+
+
+@pytest.mark.crypto_heavy
+def test_backend_matrix_on_cut_lanes():
+    """Every case of tests/test_tpu_backend.py: the device verdict on the
+    real lanes against the cpu backend on the same scalars."""
+    rng = np.random.default_rng(3)
+
+    def check(sets, want):
+        rs = [int.from_bytes(rng.bytes(8), "big") | 1 for _ in sets]
+        assert verify_cut(sets, rs) is want
+        assert CPU.verify_signature_sets(sets, rs) is want
+
+    check(make_sets(5), True)
+    sets = make_sets(5)
+    evil = SecretKey.from_seed(b"evil-key")
+    sets[2] = SignatureSet.single_pubkey(
+        evil.sign(b"wrong message"), sets[2].signing_keys[0], sets[2].message)
+    check(sets, False)
+    sks = [SecretKey.from_seed(bytes([i, 9, 9])) for i in range(1, 4)]
+    msg = b"aggregate me"
+    pks = [sk.public_key() for sk in sks]
+    agg = bls.aggregate_signatures([sk.sign(msg) for sk in sks])
+    check([SignatureSet.multiple_pubkeys(agg, pks, msg)] + make_sets(2), True)
+    agg_bad = bls.aggregate_signatures([sk.sign(msg) for sk in sks[:2]])
+    check([SignatureSet.multiple_pubkeys(agg_bad, pks, msg)], False)
+    one = make_sets(1)[0]
+    check([], False)
+    check([SignatureSet(signature=one.signature, signing_keys=[], message=b"x")], False)
+    check([SignatureSet.single_pubkey(Signature(point=None), one.signing_keys[0], one.message)],
+          False)
+    sets = make_sets(2)
+    sets[1] = SignatureSet.single_pubkey(
+        Signature(point=_non_subgroup_point()), sets[1].signing_keys[0], sets[1].message)
+    check(sets, False)
+    sk = SecretKey.from_seed(b"single")
+    sig = sk.sign(b"hello")
+    for m, want in ((b"hello", True), (b"goodbye", False)):
+        s = [SignatureSet.single_pubkey(sig, sk.public_key(), m)]
+        assert verify_cut(s, [1]) is want
+        assert CPU.verify_single(sig, sk.public_key(), m) is want
+
+
+@pytest.mark.crypto_heavy
+def test_batch_through_reference_seam(monkeypatch):
+    """The reference front's verify_signature_sets with the port registered
+    as backend "cuda" (on the CPU, its batches cut to their real lanes);
+    the reference's dispatch hook raises, so no reference kernel runs."""
+    import lighthouse_tpu.crypto.bls as ref_bls
+    from lighthouse_tpu.crypto.bls import backends as ref_backends
+    from lighthouse_tpu.ops.lane import fp as ref_fp
+
+    def no_reference_kernel(name, *a):
+        raise AssertionError(f"reference kernel {name} dispatched")
+
+    port = SimpleNamespace(
+        verify_signature_sets=lambda sets, rs: CB.verify_signature_sets(sets, rs, device="cpu"),
+        verify_single=lambda sig, pk, m: CB.verify_single(sig, pk, m, device="cpu"),
+    )
+    monkeypatch.setitem(ref_backends._BACKENDS, "cuda", port)
+    monkeypatch.setattr(ref_fp, "CENSUS", no_reference_kernel)
+    monkeypatch.setattr(params, "lane_bucket", lambda n: n)
+    assert ref_bls.verify_signature_sets(make_sets(2), backend="cuda") is True
