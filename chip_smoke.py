@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU: its KZG slice and its main path,
-BLS batch signature verification, holding every kernel against its plain
-PyTorch version.
+"""Drive the PyTorch/CUDA port on one GPU: its KZG slice, its main path
+(BLS batch signature verification) and the paths of the last six TPU
+kernels (the per-lane ladders, the unfused Miller doubling, the Fp-product
+microbenchmark), holding every kernel against its plain PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit (nvcc):
@@ -13,12 +14,16 @@ needs one card. Phases, each with its seconds; any failure raises and exits
 non-zero before the last line:
 
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
-2. build: the seven CUDA libraries from csrc/ (one nvcc each, in
+2. build: the nine CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
    function.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
-   then every kernel of the pairing check (those three again, and
+   slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
+   ubench_mul and ubench_mul_chain (R = 3) on seeded operands at those
+   widths and at S = 1 and 2 (infinity lanes on both sides of a ladder
+   step, its bit row all 0, all 1 and mixed), timed at S = 4096; then every
+   kernel of the pairing check (those three again, and
    reduce_light, f2mul, f2sqr, f6mul, f12mul, miller_dbl_iter,
    miller_add_iter, cyc_sqr) against theirs on operands recorded from a
    real Miller loop, final exponentiation and == 1 test over 4097 seeded
@@ -57,8 +62,27 @@ non-zero before the last line:
    by op at buckets 128 and 1024. The wall per verify split into host
    packing and device, the sets/s at 1024, and the device share of one
    1024 verify from the profiler.
-7. the `kernels` JSON line (launches: the BLS main path's; launches_kzg:
-   phase 5's); 8. the `ok` JSON line (last).
+7. ladders, slice 4's paths, each run with the counters zeroed just
+   before and read just after (no other launch, no plain body on a CUDA
+   tensor): on the 1,024-set batch of phase 6 (bucket 1024, the last
+   lane's signature moved off G2), J.scalar_mul over G1 (64
+   ladder_step_f1) and J.scalar_mul_with_static over G2 with the static
+   |u| (64 ladder_step_f2, 6 jac_add_f2); [r]apk and [r]S jac_eq to the
+   windowed chains' on every lane, the static accumulator torch.equal to
+   scalar_mul_static, psi(S) == -[|u|]S on the 1,023 real lanes and not
+   on the lane off G2; the walls of each ladder beside its windowed
+   counterpart. The unfused Miller doubling: f12mul_034(f12sqr(f), c0,
+   c1, c4) through the two standalone kernels on all 63 doubling
+   iterations of a 128-lane Miller loop (phase 4's pairs), torch.equal to
+   miller_dbl_iter's f. The microbenchmark at S = 110,592 and R = 40: one
+   product, R chained products in one launch and the lane baseline (norm3
+   on both operands, R launches of mul), against Python ints, then its
+   ms per launch and per element-product (lighthouse_tpu_torch.tools.
+   ubench_mul.run), there and at 1,024 lanes.
+8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
+   slice 4's paths' for theirs; launches_kzg: phase 5's; launches_slice4:
+   phase 7's; row 23 of the TPU-kernel table is two entries,
+   ubench_mul and ubench_mul_chain); 9. the `ok` JSON line (last).
 """
 
 from __future__ import annotations
@@ -106,9 +130,21 @@ KERNELS = {
     "jac_add_f2": (CSRC + "jac_add.cu", "lighthouse_tpu/ops/lane/jacobian.py:166"),
     "g1_win_step": (CSRC + "chains.cu", "lighthouse_tpu/ops/lane/chains.py:137"),
     "g2_win_step": (CSRC + "chains.cu", "lighthouse_tpu/ops/lane/chains.py:138"),
+    "norm3": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:443"),
+    "f12sqr": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/tower.py:221"),
+    "f12mul_034": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/tower.py:222"),
+    "ladder_step_f1": (CSRC + "ladder.cu", "lighthouse_tpu/ops/lane/jacobian.py:167"),
+    "ladder_step_f2": (CSRC + "ladder.cu", "lighthouse_tpu/ops/lane/jacobian.py:168"),
+    # row 23 of the TPU-kernel table is two kernels, `_kernel` and `_kernel_chain`
+    "ubench_mul": (CSRC + "ubench_mul.cu", "tools/ubench_pallas.py:85"),
+    "ubench_mul_chain": (CSRC + "ubench_mul.cu", "tools/ubench_pallas.py:93"),
 }
-# the kernels of the KZG path (slices 1 and 2)
+# the kernels of the KZG path (slices 1 and 2), of the BLS main path (slices
+# 1-3) and of slice 4's paths (the ladders, the unfused Miller doubling,
+# the microbenchmark)
 KZG_KERNELS = tuple(KERNELS)[:13]
+BLS_KERNELS = tuple(KERNELS)[:17]
+SLICE4_KERNELS = tuple(KERNELS)[17:]
 SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1")
 # every kernel of the pairing check, held on operands recorded from a real one
 RECORDED = ("mul", "sqr", "canon_reduce", "reduce_light", "f2mul", "f2sqr", "f6mul",
@@ -143,6 +179,14 @@ PER_VERIFY = {
     1024: {**_PER_VERIFY_COMMON, "f2sqr": 434, "f2mul": 376, "jac_dbl_f2": 211,
            "f12mul": 46, "canon_reduce": 44, "jac_add_f2": 35},
 }
+# launches on slice 4's paths: 64-bit G1 and G2 ladders (the G2 one with
+# the static |u| = 0xd201000000010000 on its chain, popcount 6) at bucket
+# 1024; the unfused doubling of a 128-lane Miller loop (63 iterations); the
+# microbenchmark at the reference's R = 40, beside its lane baseline
+PER_LADDERS = {"ladder_step_f1": 64, "ladder_step_f2": 64, "jac_add_f2": 6}
+PER_UNFUSED = {"f12sqr": 63, "f12mul_034": 63}
+UBENCH_R = 40
+PER_UBENCH = {"ubench_mul": 1, "ubench_mul_chain": 1, "norm3": 2, "mul": UBENCH_R}
 # the real-size batch: the node's default gossip attestation batch
 # (max_gossip_attestation_batch_size), 64 committees of 16 validators, each
 # committee signing its own message
@@ -197,6 +241,10 @@ def _ops_counts():
     m034 = 13 * f2mul + 60 * lazy
     dbl_step = 6 * f2sqr + 5 * f2mul + 4 * mul + 8 * rl + 34 * lazy
     add_step = 4 * f2sqr + 10 * f2mul + 4 * mul + 8 * rl + 30 * lazy
+    # the microbenchmark's product: 3 carry passes at every site
+    ub_round = (W * W * 2 + 15 * fp.CONVW + fold(fp.CONVW) + 15 * 37 + fold(37)
+                + 15 * W + fold(W) + 15 * W)
+    ub_entry = 2 * 15 * W
     return {
         "mul": mul, "sqr": sqr, "canon_reduce": canon, "jac_dbl_f1": dbl,
         "jac_add_f1": add, "reduce_light": rl, "f2mul": f2mul, "f2sqr": f2sqr,
@@ -209,17 +257,36 @@ def _ops_counts():
         # 2 doublings, one add, the 3-way and the digit-0 selects
         "g1_win_step": 2 * dbl + add + 3 * W * 3,
         "g2_win_step": 2 * dbl_f2 + add_f2 + 6 * W * 3,
+        "norm3": passes("norm3.kernel", W),
+        "f12sqr": f12sqr,
+        "f12mul_034": m034,
+        # the add (on every lane), the doubling and the 3-coordinate select
+        "ladder_step_f1": add + dbl + 3 * W,
+        "ladder_step_f2": add_f2 + dbl_f2 + 3 * W * 2,
+        "ubench_mul": ub_entry + ub_round,
+        "ubench_entry": ub_entry,
+        "ubench_round": ub_round,
     }
+
+
+def _work_ops(name: str, args) -> int:
+    """int32 operations per lane element of one call (the chain's depend
+    on its R, its third argument)."""
+    c = _ops_counts()
+    if name == "ubench_mul_chain":
+        return c["ubench_entry"] + int(args[2]) * c["ubench_round"]
+    return c[name]
 
 
 def bound_ms(name: str, args, outs) -> tuple:
     """The least time for one call: this call's bytes (each input read
     once, each output written once, at their own sizes) over the memory
     rate, against its int32 operations over the peak rate."""
-    n_bytes = sum(a.numel() * a.element_size() for a in (*args, *outs))
+    n_bytes = sum(a.numel() * a.element_size() for a in (*args, *outs)
+                  if isinstance(a, torch.Tensor))
     lanes = outs[0].numel() // (outs[0].shape[-2] * _rows(name))
     t_bytes = n_bytes / PEAK_BYTES_S
-    t_ops = _ops_counts()[name] * lanes / PEAK_INT32_OPS_S
+    t_ops = _work_ops(name, args) * lanes / PEAK_INT32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -227,12 +294,15 @@ def _rows(name: str) -> int:
     """Fp rows per lane element of the kernel's first output."""
     from lighthouse_tpu_torch.ops.lane import kernels
 
-    comp = kernels.ENTRIES[_op(name).symbol][2][0]
-    return int(np.prod(comp, dtype=np.int64))
+    entry = kernels.ENTRIES.get(_op(name).symbol)
+    if entry is None:  # the microbenchmark: one Fp element per lane
+        return 1
+    return int(np.prod(entry[2][0], dtype=np.int64))
 
 
 def _op(name: str):
     from lighthouse_tpu_torch.ops.lane import chains, fp, jacobian as J, pairing as OP, tower
+    from lighthouse_tpu_torch.tools import ubench_mul as U
 
     return {
         "mul": fp.mul, "sqr": fp.sqr, "canon_reduce": fp.canon_reduce,
@@ -243,6 +313,9 @@ def _op(name: str):
         "f6mul": tower.f6mul, "f12mul": tower.f12mul,
         "miller_dbl_iter": OP._dbl_iter, "miller_add_iter": OP._add_iter,
         "cyc_sqr": OP.cyclotomic_sqr,
+        "norm3": fp.norm3, "f12sqr": tower.f12sqr, "f12mul_034": tower.f12mul_034,
+        "ladder_step_f1": J._ladder_step_f1, "ladder_step_f2": J._ladder_step_f2,
+        "ubench_mul": U.mul, "ubench_mul_chain": U.mul_chain,
     }[name]
 
 
@@ -331,6 +404,76 @@ def _inputs(rng, shape, kind):
     dig = t(rng.integers(0, 4, size=(*shape[: -2 - (kind == "g2_win_step")], 1, S)))
     dig[..., :4] = torch.arange(4, device=dev)  # every digit, also at S=4
     return pts + table[0] + table[1] + table[2] + [dig]
+
+
+# slice 4's seeded holds: the phase-3 shapes, and 1 and 2 lanes
+SLICE4_SHAPES = SHAPES + [(36, 1), (36, 2)]
+SLICE4_COMP = {"norm3": (), "f12sqr": (2, 3, 2), "f12mul_034": (2, 3, 2),
+               "ladder_step_f1": (), "ladder_step_f2": (2,),
+               "ubench_mul": (), "ubench_mul_chain": ()}
+
+
+def _slice4_inputs(rng, shape, kind, bits="mixed"):
+    """Seeded operands of slice 4's kernels over the lanes and stack of
+    `shape` [*lead, 36, S]: lazy sums inside the entry contracts, infinity
+    lanes on both sides of a ladder step, its bit row all 0, all 1 or
+    mixed; the chain at R = 3."""
+    from lighthouse_tpu_torch.crypto.bls.params import P
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    *lead, _, S = shape
+    full = (*lead, *SLICE4_COMP[kind], 36, S)
+
+    def canon(shp=full):
+        k = int(np.prod(shp[:-2]))
+        ints = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(k * S)]
+        return fp.pack(ints).reshape(36, k, S).transpose(1, 0, 2).reshape(shp)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(DEVICE)
+
+    def lazy3():
+        return canon() + canon() - canon()
+
+    if kind == "norm3":  # a 12-term add chain, the certified depth
+        return [t(sum(canon() for _ in range(12)))]
+    if kind == "f12sqr":
+        return [t(lazy3())]
+    if kind == "f12mul_034":
+        f2 = (*lead, 2, 36, S)
+        return [t(lazy3()), t(canon(f2)), t(canon(f2)), t(canon(f2))]
+    if kind.startswith("ubench"):
+        return [t(lazy3()), t(canon())] + ([3] if kind.endswith("chain") else [])
+    lanes = torch.arange(S, device=DEVICE)
+    acc = [t(canon()), t(lazy3()), t(canon())]
+    addend = [t(canon()), t(canon()), t(lazy3())]
+    acc[2][..., lanes % 7 == 3] = 0      # structural infinity (Z = 0) lanes
+    addend[2][..., lanes % 5 == 1] = 0
+    addend[2][..., lanes % 7 == 3] = 0   # both at infinity on some lanes
+    row = {"0": np.zeros, "1": np.ones}.get(bits)
+    bit = (row((*lead, 1, S)) if row else rng.integers(0, 2, size=(*lead, 1, S)))
+    return acc + addend + [t(bit)]
+
+
+def _slice4_holds(rng, out: dict) -> None:
+    """Slice 4's six kernels (seven CUDA kernels: the microbenchmark is
+    two) against their plain bodies on seeded operands at SLICE4_SHAPES,
+    every ladder bit row, timed at S=4096."""
+    for name in SLICE4_KERNELS:
+        max_err = 0
+        for shape in SLICE4_SHAPES:
+            for bits in (("0", "1", "mixed") if name.startswith("ladder") else ("mixed",)):
+                args = _slice4_inputs(rng, shape, name, bits)
+                max_err = max(max_err, _hold(name, args, f"{shape} bits={bits}"))
+            if shape == SHAPES[0]:
+                if name == "ubench_mul_chain":  # timed at the reference's R
+                    args = args[:2] + [UBENCH_R]
+                timing = _time(name, args)
+        out[name] = dict(max_abs_err=max_err, **timing)
+        say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
+            shapes="S=4096,2x128,S=4097,S=1,S=2", operands="seeded(infinity lanes, bit rows 0/1/mixed)"
+            if name.startswith("ladder") else "seeded",
+            **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
 def _median_ms(fn, reps=15, warm=2) -> float:
@@ -514,6 +657,8 @@ def phase_kernels() -> dict:
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             shapes="36x4096,2x36x128,36x4097", operands="seeded",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+
+    _slice4_holds(rng, out)
 
     # the pairing kernels, on operands recorded from a real run
     free0, _ = torch.cuda.mem_get_info()
@@ -957,7 +1102,7 @@ def phase_bls(card: str) -> tuple:
             widths="S=1,S=2,own,2x128", operands="recorded(bucket-128 verify)",
             layouts="|".join(f"{_layout(k)}:{e['calls']}" for k, e in sets.items()),
             bls_path_S=row["bls_path_S"], bls_path_call_ms=f"{row['bls_path_call_ms']:.5f}")
-    missing = sorted(set(KERNELS) - set(rec))
+    missing = sorted(set(BLS_KERNELS) - set(rec))
     if missing:
         raise AssertionError(f"kernels a bucket-128 verify did not call: {missing}")
     say("bls", recorded_layouts=n_layouts, kernels=len(rec))
@@ -992,7 +1137,7 @@ def phase_bls(card: str) -> tuple:
     torch.cuda.synchronize()
     launches = dict(fp.LAUNCHES)  # ---- ... and ends here
     plain_calls = dict(fp.PLAIN_CUDA_CALLS)
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    missing = [k for k in BLS_KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the BLS path: {missing}")
     if plain_calls:
@@ -1025,6 +1170,203 @@ def phase_bls(card: str) -> tuple:
     return out, launches
 
 
+def _window(label: str, want: dict, fn):
+    """Run fn() with the launch counters zeroed just before and read just
+    after; the counts must equal `want`, with no plain body on a CUDA
+    tensor. Returns (fn's result, wall s)."""
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    torch.cuda.synchronize()
+    fp.reset_counts()  # ---- the path's run starts here
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got, plain = dict(fp.LAUNCHES), dict(fp.PLAIN_CUDA_CALLS)  # ---- ... and ends here
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    if plain:
+        raise AssertionError(f"{label}: plain bodies ran on CUDA tensors: {plain}")
+    say("ladders", path=label, launches=json.dumps(got, separators=(",", ":")),
+        plain_body_calls_on_cuda=0)
+    return res, wall
+
+
+def _wall(fn) -> float:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _ladders_1024(card: str, out: dict) -> dict:
+    """The per-lane ladders on the 1,024-set gossip batch (bucket 1024),
+    beside the windowed chains of the main path on the same lanes."""
+    from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
+    from lighthouse_tpu_torch.ops.lane import chains, fp, jacobian as J, tower
+
+    gossip = _gossip_batch()
+    rs = _scalars(np.random.default_rng(SEED + 4), len(gossip))
+    apk_x, apk_y, sig_x, sig_y, _, _, rbits, _ = CB.to_device(CB.prepare_batch(gossip, rs), DEVICE)
+    S = apk_x.shape[-1]
+    # the last lane's signature moved onto a point of E2 outside G2
+    off = _non_subgroup_point()
+    sig_x[..., -1:] = torch.from_numpy(tower.f2_pack(off[0])).to(DEVICE)
+    sig_y[..., -1:] = torch.from_numpy(tower.f2_pack(off[1])).to(DEVICE)
+    one1 = torch.from_numpy(fp.ONE).to(DEVICE)[:, None].expand(fp.W, S)
+    one2 = tower.bcast(tower.consts(DEVICE)["f2_one"], S)
+    apk, sig = (apk_x, apk_y, one1), (sig_x, sig_y, one2)
+    m_abs = CB._M_ABS
+
+    def ladders():
+        r_apk = J.scalar_mul(J.FP1, apk, rbits)
+        return r_apk, *J.scalar_mul_with_static(J.FP2, sig, rbits, m_abs)
+
+    (r_apk, dyn, stat), wall = _window("ladders_1024", PER_LADDERS, ladders)
+
+    r_apk_w = chains.scalar_mul_w2(J.FP1, apk, rbits)
+    r_sig_w = chains.scalar_mul_w2(J.FP2, sig, rbits)
+    stat_ref = J.scalar_mul_static(J.FP2, sig, m_abs)
+    if not bool(J.jac_eq(J.FP1, r_apk, r_apk_w).all()):
+        raise AssertionError("[r]apk: scalar_mul != scalar_mul_w2 on some lane")
+    if not bool(J.jac_eq(J.FP2, dyn, r_sig_w).all()):
+        raise AssertionError("[r]S: scalar_mul_with_static != scalar_mul_w2 on some lane")
+    for a, b in zip(stat, stat_ref, strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[|u|]S: scalar_mul_with_static's limbs != scalar_mul_static's")
+    sub = J.jac_eq(J.FP2, J.psi(sig), J.neg(J.FP2, stat)).tolist()
+    if not all(sub[:-1]) or sub[-1]:
+        bad = [i for i, v in enumerate(sub[:-1]) if not v]
+        raise AssertionError(f"subgroup verdicts: real lanes failing {bad[:8]}, "
+                             f"the lane off G2 {'passed' if sub[-1] else 'failed'}")
+
+    # walls at 1024 lanes, each ladder beside its windowed counterpart, in
+    # turns (ladder, windowed, windowed, ladder, ...), the median of 4
+    runs = {
+        "g1_ladder_s": lambda: J.scalar_mul(J.FP1, apk, rbits),
+        "g1_windowed_s": lambda: chains.scalar_mul_w2(J.FP1, apk, rbits),
+        "g2_ladder_with_static_s": lambda: J.scalar_mul_with_static(J.FP2, sig, rbits, m_abs),
+        "g2_windowed_plus_static_s": lambda: (chains.scalar_mul_w2(J.FP2, sig, rbits),
+                                              J.scalar_mul_static(J.FP2, sig, m_abs)),
+    }
+    times = {k: [] for k in runs}
+    for rep in range(4):
+        for pair in (tuple(runs)[:2], tuple(runs)[2:]):
+            for k in (pair if rep % 2 == 0 else pair[::-1]):
+                times[k].append(_wall(runs[k]))
+    walls = {k: statistics.median(v) for k, v in times.items()}
+    rows = rbits.to(torch.int32)[:, None, :]
+    for name, pt in (("ladder_step_f1", apk), ("ladder_step_f2", sig)):
+        out.setdefault(name, {}).update(
+            slice4_path_S=S,
+            slice4_path_call_ms=_median_ms(lambda: _op(name)(*pt, *pt, rows[0])))
+    say("ladders", bucket=S, card=repr(card), r_apk="jac_eq scalar_mul_w2 on all lanes",
+        r_sig="jac_eq scalar_mul_w2 on all lanes",
+        u_sig="torch.equal scalar_mul_static",
+        subgroup=f"psi(S)==-[|u|]S on {len(sub) - 1} real lanes, False on the lane off G2",
+        counted_run_s=f"{wall:.4f}", **{k: f"{v:.4f}" for k, v in walls.items()})
+    return walls
+
+
+def _unfused_doubling(out: dict) -> None:
+    """f12mul_034(f12sqr(f), c0, c1, c4) through the two standalone
+    kernels on every doubling iteration of a 128-lane Miller loop (phase
+    4's pairs), torch.equal to miller_dbl_iter's f; the line coefficients
+    from the plain doubling-step body on the same CUDA tensors (the check's
+    reference, not the path)."""
+    from lighthouse_tpu_torch.ops.lane import fp, pairing as OP, tower
+
+    xP, yP, xQ, yQ = _pack_pairs(_seeded_pairs(128, SEED + 1))
+    calls = []
+    launch = fp.KernelOp.__call__
+
+    def recording(op, *arrays):
+        res = launch(op, *arrays)
+        if op.name == "miller_dbl_iter":
+            calls.append((arrays, res[0]))
+        return res
+
+    fp.KernelOp.__call__ = recording
+    try:
+        OP.miller_loop(xP, yP, xQ, yQ)
+        torch.cuda.synchronize()
+    finally:
+        fp.KernelOp.__call__ = launch
+    c = fp.consts(DEVICE)
+    lines = [OP._dbl_step_body(c["folds"], c["topf"], *args[1:])[3:] for args, _ in calls]
+
+    def unfused():
+        return [tower.f12mul_034(tower.f12sqr(args[0]), *ln)
+                for (args, _), ln in zip(calls, lines, strict=True)]
+
+    fs, wall = _window("unfused_doubling_128", PER_UNFUSED, unfused)
+    for i, (f, (_, want)) in enumerate(zip(fs, calls, strict=True)):
+        if not torch.equal(f, want):
+            raise AssertionError(f"unfused doubling {i}: f12mul_034(f12sqr(f)) != miller_dbl_iter's f")
+    f_mid = calls[len(calls) // 2][0][0].contiguous()
+    ln = [a.contiguous() for a in lines[len(lines) // 2]]
+    out.setdefault("f12sqr", {}).update(
+        slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12sqr(f_mid)))
+    out.setdefault("f12mul_034", {}).update(
+        slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12mul_034(f_mid, *ln)))
+    say("ladders", unfused_doubling="torch.equal miller_dbl_iter's f", iterations=len(calls),
+        lanes=128, wall_s=f"{wall:.4f}")
+
+
+def _ubench(card: str, out: dict) -> dict:
+    """The microbenchmark at the reference's S and R: one window through
+    both kernels and the lane baseline, the products against Python ints,
+    the kernels held at full width, then its own timed runs at that S and
+    at 1,024 lanes (the widest BLS bucket)."""
+    from lighthouse_tpu_torch.crypto.bls.params import P
+    from lighthouse_tpu_torch.ops.lane import fp
+    from lighthouse_tpu_torch.tools import ubench_mul as U
+
+    S = U.S_DEFAULT
+    ints_a, ints_b, A, Bm = U.operands(S, DEVICE)
+    (one, chain, lane), _ = _window("ubench", PER_UBENCH, lambda: (
+        U.mul(A, Bm), U.mul_chain(A, Bm, UBENCH_R), U.lane_chain(A, Bm, UBENCH_R)))
+    want = [a * pow(b, UBENCH_R, P) % P for a, b in zip(ints_a, ints_b)]
+    if fp.unpack(one[:, :8]) != [a * b % P for a, b in zip(ints_a, ints_b)]:
+        raise AssertionError("ubench single product != a b mod p")
+    if fp.unpack(chain[:, :8]) != want or fp.unpack(lane[:, :8]) != want:
+        raise AssertionError("ubench chain or lane baseline != a b^R mod p")
+    for name, args in (("ubench_mul", [A, Bm]), ("ubench_mul_chain", [A, Bm, UBENCH_R]),
+                       ("norm3", [A])):
+        err = _hold(name, args, f"S={S}")
+        row = out.setdefault(name, {})
+        row.update(max_abs_err=max(row.get("max_abs_err", 0), err), slice4_path_S=S,
+                   slice4_path_call_ms=_median_ms(lambda: _op(name)(*args), reps=5))
+    # the reference's width, then the BLS path's widest bucket
+    runs = {}
+    for width in (S, 1024):
+        res = runs[width] = U.run(width, UBENCH_R, DEVICE,
+                                  out=lambda line: say("ubench", line=repr(line)))
+        if not res["ok"]:
+            raise AssertionError(f"ubench_mul.run at S={width}: a product was wrong")
+        say("ubench", card=repr(card), S=width, R=UBENCH_R,
+            chain_ms_per_mul=f"{res['chain_ms'] / UBENCH_R:.5f}",
+            lane_ms_per_mul=f"{res['lane_ms'] / UBENCH_R:.5f}",
+            single_ms=f"{res['single_ms']:.5f}",
+            lane_over_chain=f"{res['lane_ms'] / res['chain_ms']:.3f}")
+    return runs
+
+
+def phase_ladders(card: str) -> tuple:
+    """Slice 4's paths: the ladders at bucket 1024, the unfused Miller
+    doubling at 128 lanes, the microbenchmark at S = 110,592, R = 40."""
+    out = {}
+    walls = _ladders_1024(card, out)
+    _unfused_doubling(out)
+    ub = _ubench(card, out)
+    launches = {}
+    for per in (PER_LADDERS, PER_UNFUSED, PER_UBENCH):
+        for k, v in per.items():
+            launches[k] = launches.get(k, 0) + v
+    return out, launches, dict(walls=walls, ubench=ub)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -1047,17 +1389,25 @@ def main() -> int:
     timed("pairing128", phase_pairing128)
     launches_kzg = timed("e2e", phase_e2e)
     per_bls, launches = timed("bls", lambda: phase_bls(card))
+    per_s4, launches_s4, _ = timed("ladders", lambda: phase_ladders(card))
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        k = {**per_kernel.get(name, {}), **per_bls.get(name, {})}
-        k["max_abs_err"] = max(per_kernel.get(name, {}).get("max_abs_err", 0),
-                               per_bls[name]["max_abs_err"])
+        parts = [d[name] for d in (per_kernel, per_bls, per_s4) if name in d]
+        k = {kk: v for d in parts for kk, v in d.items()}
+        k["max_abs_err"] = max(d.get("max_abs_err", 0) for d in parts)
+        # launches: the main path's for its kernels, slice 4's paths' for theirs
+        n = launches[name] if name in BLS_KERNELS else launches_s4[name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "launches_kzg": launches_kzg.get(name, 0),
+            "launches": n, "launches_kzg": launches_kzg.get(name, 0),
+            "launches_slice4": launches_s4.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
+            # the CUDA-event call ms at S=4096 and at each path's own width
+            **{key: k[key] for key in ("call_ms", "path_S", "path_call_ms", "bls_path_S",
+                                       "bls_path_call_ms", "slice4_path_S",
+                                       "slice4_path_call_ms") if key in k},
         })
     say("phase", name="all", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)

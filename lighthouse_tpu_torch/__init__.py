@@ -11,7 +11,9 @@ windowed ladders, subgroup checks, Miller loops and the final
 exponentiation on the device), and the KZG blob commit / prove /
 batch-verify path with the G1 MSM and the pairing check on the device
 (crypto/kzg/device.py `device_kzg`), over the lane-major Fp core and tower
-(ops/lane/fp.py, tower.py), the G1/G2 Jacobian ops and chains
-(jacobian.py, chains.py), the map to G2 (htc.py) and the pairing
-(pairing.py), whose kernels are hand-written CUDA for sm_90a (csrc/).
+(ops/lane/fp.py, tower.py), the G1/G2 Jacobian ops with the per-lane
+ladders and the windowed chains (jacobian.py, chains.py), the map to G2
+(htc.py) and the pairing (pairing.py), whose kernels are hand-written CUDA
+for sm_90a (csrc/): every TPU kernel of the reference has one, the
+Fp-product microbenchmark's (tools/ubench_mul.py) included.
 """

@@ -78,6 +78,28 @@ def batch_from_reference(args) -> tuple:
             torch.from_numpy(pad.astype(bool)))
 
 
+def lanes_from_reference(arrays) -> tuple:
+    """Lane-major int32 arrays of the reference, numpy or jax (a point's
+    coordinates, a ladder's bit rows, a ladder step's seven operands, the
+    microbenchmark's operands) -> the port's int32 CPU tensors, in order."""
+    return tuple(
+        torch.from_numpy(np.array(a, dtype=np.int32, order="C", copy=True)) for a in arrays
+    )
+
+
+def ubench_tables_from_reference(arrays: dict) -> dict:
+    """The reference microbenchmark's (tools/ubench_pallas.py) FOLDS,
+    TOPFM (numpy arrays) and _TROW (a dict) -> C-ordered int32 numpy
+    tables and the dict, under the same names: what
+    lighthouse_tpu_torch/tools/ubench_mul.py hands its kernels by pointer."""
+    out = {
+        name: np.ascontiguousarray(np.asarray(arrays[name]), dtype=np.int32)
+        for name in ("FOLDS", "TOPFM")
+    }
+    out["_TROW"] = {int(k): int(v) for k, v in dict(arrays["_TROW"]).items()}
+    return out
+
+
 def setup_from_reference(g1_lagrange, g2_tau, roots) -> TrustedSetup:
     """The port's TrustedSetup over the reference setup's Lagrange basis,
     [tau]G2 and domain (plain ints and tuples), with its packed CPU basis

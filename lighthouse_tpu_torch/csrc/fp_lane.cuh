@@ -38,6 +38,7 @@ constexpr int SQR_ENTRY = 1;
 constexpr int RL_ENTRY = 0;
 constexpr int RL_FOLD_A = 0;
 constexpr int RL_FOLD_B = 1;
+constexpr int NORM3_KERNEL = 2;
 // canon.* sites are OPEN (value-preserving) passes
 constexpr int CANON_ENTRY = 0;
 constexpr int CANON_FOLD_A = 0;

@@ -1,15 +1,21 @@
-// K5-K9: the tower kernels `reduce_light`, `f2mul`, `f2sqr`, `f6mul` and
-// `f12mul`, one entry each over the device functions of tower.cuh.
+// K5-K9: the tower kernels `reduce_light`, `f2mul`, `f2sqr`, `f6mul`,
+// `f12mul`, `f12sqr` and `f12mul_034`, one entry each over the device
+// functions of tower.cuh.
 //
 // Replace the reference's Pallas kernels `reduce_light`
 // (lighthouse_tpu/ops/lane/fp.py:442, `_reduce_light_body`) and `f2mul`,
-// `f2sqr`, `f6mul`, `f12mul` (lighthouse_tpu/ops/lane/tower.py:217-220,
-// `_f2mul_body` / `_f2sqr_body` / `_f6mul_body` / `_f12mul_body`).
+// `f2sqr`, `f6mul`, `f12mul`, `f12sqr`, `f12mul_034`
+// (lighthouse_tpu/ops/lane/tower.py:217-222, `_f2mul_body` / `_f2sqr_body`
+// / `_f6mul_body` / `_f12mul_body` / `_f12sqr_body` / `_f12mul_034_body`).
+// The last two are the unfused halves of the Miller doubling: their bodies
+// also run inside k_miller_dbl_iter and k_miller_add_iter (miller.cu).
 //
 // Bound on the H100: integer operations. Per lane element f12mul does 54
 // Fp products (~390,000 int32 operations) against 3 x 1,728 bytes in and
-// out; f2mul and f6mul the same ratio at 3 and 18 products. reduce_light
-// (two single-row folds, ~300 operations on 288 bytes) is bound by bytes.
+// out; f12sqr 36 products against 2 x 1,728 bytes, f12mul_034 39 against
+// 1,728 + 3 x 288 + 1,728; f2mul and f6mul the same ratio at 3 and 18
+// products. reduce_light (two single-row folds, ~300 operations on 288
+// bytes) is bound by bytes.
 // Design: one thread per lane element; the operands and the Karatsuba
 // stacks live in the thread's local memory, each Fp product runs in the
 // out-of-line `fp_mul` with its limbs in registers. On the final
@@ -76,6 +82,31 @@ __global__ void __launch_bounds__(lh::THREADS)
   lh::store_rows<12>(out, x, k, s, S);
 }
 
+__global__ void __launch_bounds__(lh::THREADS)
+    k_f12sqr(const int* __restrict__ a, int* __restrict__ out, int K, int S) {
+  long k, s;
+  if (!lh::lane_index(K, S, &k, &s)) return;
+  int x[lh::F12];
+  lh::load_rows<12>(x, a, k, s, S);
+  lh::f12sqr(x, x);
+  lh::store_rows<12>(out, x, k, s, S);
+}
+
+__global__ void __launch_bounds__(lh::THREADS)
+    k_f12mul_034(const int* __restrict__ f, const int* __restrict__ c0,
+                 const int* __restrict__ c1, const int* __restrict__ c4,
+                 int* __restrict__ out, int K, int S) {
+  long k, s;
+  if (!lh::lane_index(K, S, &k, &s)) return;
+  int x[lh::F12], l0[lh::F2], l1[lh::F2], l4[lh::F2];
+  lh::load_rows<12>(x, f, k, s, S);
+  lh::load_rows<2>(l0, c0, k, s, S);
+  lh::load_rows<2>(l1, c1, k, s, S);
+  lh::load_rows<2>(l4, c4, k, s, S);
+  lh::f12mul_034(x, x, l0, l1, l4);
+  lh::store_rows<12>(out, x, k, s, S);
+}
+
 }  // namespace
 
 LH_EXPORT int lh_tower_init(const void* folds, const void* topfm) {
@@ -113,4 +144,15 @@ LH_EXPORT int lh_f6mul(const void* a, const void* b, void* out, int K, int S,
 LH_EXPORT int lh_f12mul(const void* a, const void* b, void* out, int K, int S,
                         void* stream) {
   LH_LAUNCH(k_f12mul, (const int*)a, (const int*)b, (int*)out);
+}
+
+LH_EXPORT int lh_f12sqr(const void* a, void* out, int K, int S, void* stream) {
+  LH_LAUNCH(k_f12sqr, (const int*)a, (int*)out);
+}
+
+LH_EXPORT int lh_f12mul_034(const void* f, const void* c0, const void* c1,
+                            const void* c4, void* out, int K, int S,
+                            void* stream) {
+  LH_LAUNCH(k_f12mul_034, (const int*)f, (const int*)c0, (const int*)c1,
+            (const int*)c4, (int*)out);
 }

@@ -319,6 +319,10 @@ def _reduce_light_fn(folds, topf, x):
     return _reduce_light_body(x, folds, topf)
 
 
+def _norm3_fn(folds, topf, x):
+    return _norm(x, topf, "norm3.kernel")
+
+
 def _canon_reduce_fn(folds, topf, x):
     return _canon_reduce_body(x, folds, topf)
 
@@ -326,6 +330,8 @@ def _canon_reduce_fn(folds, topf, x):
 mul = KernelOp(_mul_fn, "mul", "lh_fp_mul")
 sqr = KernelOp(_sqr_fn, "sqr", "lh_fp_sqr")
 reduce_light = KernelOp(_reduce_light_fn, "reduce_light", "lh_fp_reduce_light")
+# the public carry reset: lazy limbs back to standard at the norm3.kernel depth
+norm3 = KernelOp(_norm3_fn, "norm3", "lh_fp_norm3")
 canon_reduce = KernelOp(_canon_reduce_fn, "canon_reduce", "lh_fp_canon_reduce")
 
 
@@ -399,3 +405,27 @@ def pow_const(a, exponent: int):
 def inv(a):
     """a^(p-2): Fermat inversion (0 maps to 0)."""
     return pow_const(a, P - 2)
+
+
+def batch_inv(a):
+    """Elementwise inverses of a stack [K, ..., W, S], amortized over the
+    STACK axis: prefix products along axis 0, one Fermat inversion, then
+    back-substitution; zero slots map to zero. 3(K-1) `mul` and one `inv`
+    in the reference's order, so the limbs are the reference's."""
+    K = a.shape[0]
+    if K == 1:
+        return inv(a)
+    is_z = eq_zero(a)[..., None, :]                     # [K, ..., 1, S]
+    one = torch.from_numpy(ONE).to(a.device)[:, None]
+    safe = torch.where(is_z, one, a)
+    prefix = [safe[0]]
+    for k in range(1, K):
+        prefix.append(mul(prefix[-1], safe[k]))
+    acc = inv(prefix[-1])
+    outs = [None] * K
+    for k in range(K - 1, 0, -1):
+        outs[k] = mul(acc, prefix[k - 1])
+        acc = mul(acc, safe[k])
+    outs[0] = acc
+    out = torch.stack(outs, 0)
+    return torch.where(is_z, torch.zeros_like(out), out)

@@ -7,11 +7,13 @@ of Z exactly 0, of both components over Fp2) and the same op tables. The
 bodies are field-generic, as the reference's (`f2` flag). `double` and the
 branchless `add` each launch ONE kernel on CUDA tensors (`jac_dbl_f1`,
 `jac_add_f1`, `jac_dbl_f2`, `jac_add_f2`: csrc/jac_dbl.cu and
-csrc/jac_add.cu over csrc/jac.cuh); the bodies below are their plain
-PyTorch versions. `add(exact=True)` composes the collision check from
-`mul`/`sqr`/`eq_zero` around the kernel. The static-scalar ladder is a
-Python loop over the scalar's bits, the reference's scan + cond call for
-call.
+csrc/jac_add.cu over csrc/jac.cuh), and so does one step of the
+per-lane dynamic ladder (`ladder_step_f1`, `ladder_step_f2`:
+csrc/ladder.cu); the bodies below are their plain PyTorch versions.
+`add(exact=True)` composes the collision check from `mul`/`sqr`/`eq_zero`
+around the kernel. The ladders (`scalar_mul`, `scalar_mul_static`,
+`scalar_mul_with_static`) are Python loops over the scalars' bits that make
+the reference's scan + cond calls, call for call.
 
 Points are (X, Y, Z) tuples of lane-major field tensors: Fp [..., W, S],
 Fp2 [..., 2, W, S].
@@ -103,6 +105,26 @@ def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
     )
 
 
+def _ladder_step_body(folds, topf, X1, Y1, Z1, Xa, Ya, Za, bit, f2: bool = False):
+    """One step of the per-lane dynamic ladder: the branchless add of the
+    addend into the accumulator, kept on the lanes whose bit [..., 1, S]
+    is set, and the doubling of the addend. Returns the 3 accumulator
+    coordinates, then the 3 doubled-addend coordinates."""
+    added = _add_body(folds, topf, X1, Y1, Z1, Xa, Ya, Za, f2=f2)
+    nc = 2 if f2 else 1
+    flag = bit[..., 0, :] != 0
+    acc = tuple(_wh(flag, a, o, nc) for a, o in zip(added, (X1, Y1, Z1)))
+    return (*acc, *_dbl_body(folds, topf, Xa, Ya, Za, f2=f2))
+
+
+def _ladder_step_f1_body(folds, topf, *args):
+    return _ladder_step_body(folds, topf, *args, f2=False)
+
+
+def _ladder_step_f2_body(folds, topf, *args):
+    return _ladder_step_body(folds, topf, *args, f2=True)
+
+
 def _dbl_f1_body(folds, topf, X, Y, Z):
     return _dbl_body(folds, topf, X, Y, Z, f2=False)
 
@@ -123,6 +145,8 @@ _dbl_f1 = fp.KernelOp(_dbl_f1_body, "jac_dbl_f1", "lh_jac_dbl_f1")
 _dbl_f2 = fp.KernelOp(_dbl_f2_body, "jac_dbl_f2", "lh_jac_dbl_f2")
 _add_f1 = fp.KernelOp(_add_f1_body, "jac_add_f1", "lh_jac_add_f1")
 _add_f2 = fp.KernelOp(_add_f2_body, "jac_add_f2", "lh_jac_add_f2")
+_ladder_step_f1 = fp.KernelOp(_ladder_step_f1_body, "ladder_step_f1", "lh_ladder_step_f1")
+_ladder_step_f2 = fp.KernelOp(_ladder_step_f2_body, "ladder_step_f2", "lh_ladder_step_f2")
 
 
 FP1 = SimpleNamespace(
@@ -138,6 +162,7 @@ FP1 = SimpleNamespace(
     ),
     dbl=_dbl_f1,
     addk=_add_f1,
+    ladder_step=_ladder_step_f1,
 )
 
 FP2 = SimpleNamespace(
@@ -153,6 +178,7 @@ FP2 = SimpleNamespace(
     ),
     dbl=_dbl_f2,
     addk=_add_f2,
+    ladder_step=_ladder_step_f2,
 )
 
 
@@ -254,6 +280,46 @@ def add(ops, p1, p2, exact: bool = False):
 
 def neg(ops, p):
     return (p[0], -p[1], p[2])
+
+
+def scalar_mul(ops, base, bits):
+    """[k]base for per-lane scalars; bits [nbits, S] int32 or bool, LSB
+    first (the scalars_to_bits layout). One `ladder_step` per bit from the
+    infinity accumulator: the add is computed on every lane and kept where
+    the lane's bit is set, and the addend doubles (the last step's
+    doubling included, as the reference's scan makes it).
+
+    The add is not the exact one: for a base in the r-torsion the
+    accumulator [k mod 2^i]P never equals the addend [2^i]P, and the
+    infinity cases are structural inside the add."""
+    acc = infinity_like(ops, base)
+    addend = base
+    rows = bits.to(torch.int32)[:, None, :]  # [nbits, 1, S]
+    for i in range(rows.shape[0]):
+        out = ops.ladder_step(*acc, *addend, rows[i])
+        acc, addend = out[:3], out[3:]
+    return acc
+
+
+def scalar_mul_with_static(ops, base, bits, static_scalar: int):
+    """([k]base, [static_scalar]base) on ONE doubling chain: per step one
+    `ladder_step` for the per-lane scalars (bits as in `scalar_mul`, zero
+    past their end), then, at the static scalar's set bits, an `add` of
+    the addend into the static accumulator. That add takes the addend from
+    BEFORE the step's doubling (the kernel returns the doubled chain for
+    the next step): the reference's scan + cond makes the same calls."""
+    nbits = bits.shape[0]
+    last = max(nbits, static_scalar.bit_length())
+    acc = acc_s = infinity_like(ops, base)
+    addend = base
+    rows = bits.to(torch.int32)[:, None, :]  # [nbits, 1, S]
+    zero_row = torch.zeros_like(rows[0])
+    for i in range(last):
+        out = ops.ladder_step(*acc, *addend, rows[i] if i < nbits else zero_row)
+        if (static_scalar >> i) & 1:
+            acc_s = add(ops, acc_s, addend)
+        acc, addend = out[:3], out[3:]
+    return acc, acc_s
 
 
 def scalar_mul_static(ops, base, scalar: int):

@@ -37,12 +37,17 @@ BUILD_ROOT = _PKG / "build" / "kernels"
 # library -> source; each library exports lh_<lib>_init / _error_string
 SOURCES = {
     "fp_mul": "fp_mul.cu",        # mul, sqr
-    "fp_canon": "fp_canon.cu",    # canon_reduce
+    "fp_canon": "fp_canon.cu",    # canon_reduce, norm3
     "jac_dbl": "jac_dbl.cu",      # jac_dbl_f1, jac_dbl_f2
     "jac_add": "jac_add.cu",      # jac_add_f1, jac_add_f2
-    "tower": "tower.cu",          # reduce_light, f2mul, f2sqr, f6mul, f12mul
+    "tower": "tower.cu",          # reduce_light, f2mul, f2sqr, f6mul, f12mul,
+                                  # f12sqr, f12mul_034
     "miller": "miller.cu",        # miller_dbl_iter, miller_add_iter, cyc_sqr
     "chains": "chains.cu",        # g1_win_step, g2_win_step
+    "ladder": "ladder.cu",        # ladder_step_f1, ladder_step_f2
+    # the Fp-mul microbenchmark: built here with the rest, bound and given
+    # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
+    "ubench_mul": "ubench_mul.cu",
 }
 HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh")
 
@@ -56,6 +61,7 @@ ENTRIES = {
     "lh_fp_mul": ("fp_mul", (FP, FP), (FP,)),
     "lh_fp_sqr": ("fp_mul", (FP,), (FP,)),
     "lh_fp_canon_reduce": ("fp_canon", (FP,), (FP,)),
+    "lh_fp_norm3": ("fp_canon", (FP,), (FP,)),
     "lh_jac_dbl_f1": ("jac_dbl", (FP,) * 3, (FP,) * 3),
     "lh_jac_add_f1": ("jac_add", (FP,) * 6, (FP,) * 3),
     "lh_jac_dbl_f2": ("jac_dbl", (FP2,) * 3, (FP2,) * 3),
@@ -63,11 +69,17 @@ ENTRIES = {
     # acc, T1, T2, T3 (a point each), digit -> acc
     "lh_g1_win_step": ("chains", (FP,) * 12 + (ROW,), (FP,) * 3),
     "lh_g2_win_step": ("chains", (FP2,) * 12 + (ROW,), (FP2,) * 3),
+    # acc, addend (a point each), bit -> acc, doubled addend
+    "lh_ladder_step_f1": ("ladder", (FP,) * 6 + (ROW,), (FP,) * 6),
+    "lh_ladder_step_f2": ("ladder", (FP2,) * 6 + (ROW,), (FP2,) * 6),
     "lh_fp_reduce_light": ("tower", (FP,), (FP,)),
     "lh_f2mul": ("tower", (FP2, FP2), (FP2,)),
     "lh_f2sqr": ("tower", (FP2,), (FP2,)),
     "lh_f6mul": ("tower", (FP6, FP6), (FP6,)),
     "lh_f12mul": ("tower", (FP12, FP12), (FP12,)),
+    "lh_f12sqr": ("tower", (FP12,), (FP12,)),
+    # f, c0, c1, c4 -> f (c0 + c1 v + c4 v w)
+    "lh_f12mul_034": ("tower", (FP12, FP2, FP2, FP2), (FP12,)),
     # f, XT, YT, ZT, xP, yP -> f, X3, Y3, Z3
     "lh_miller_dbl_iter": ("miller", (FP12, FP2, FP2, FP2, FP, FP),
                            (FP12, FP2, FP2, FP2)),
@@ -161,36 +173,43 @@ def build() -> Path:
     return out
 
 
+def load(lib: str, folds: np.ndarray, topfm: np.ndarray, out: Path | None = None):
+    """Library `lib` of SOURCES (built first if need be), with the constant
+    tables `folds` [W, 41] and `topfm` [3, 73] copied into its constant
+    bank. The libraries copy them by pointer, so they must be C-ordered
+    int32."""
+    for table in (folds, topfm):
+        if not (table.flags.c_contiguous and table.dtype == np.int32):
+            raise ValueError("constant tables must be C-ordered int32")
+    so = ctypes.CDLL(str((out or build()) / f"lib{lib}.so"))
+    init = getattr(so, f"lh_{lib}_init")
+    init.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    init.restype = ctypes.c_int
+    err = getattr(so, f"lh_{lib}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    torch.cuda.init()
+    rc = init(
+        folds.ctypes.data_as(ctypes.c_void_p), topfm.ctypes.data_as(ctypes.c_void_p)
+    )
+    if rc:
+        raise RuntimeError(f"lh_{lib}_init: {err(rc).decode()} (code {rc})")
+    return so
+
+
 def libs() -> dict:
-    """The loaded libraries, built at first use, constants copied in."""
+    """The libraries ENTRIES launch, built at first use (with every other
+    library of SOURCES), the lane tables copied in."""
     global _LIBS
     with _LOCK:
         if _LIBS is None:
             from . import fp  # the constant tables (no cycle at call time)
 
             out = build()
-            loaded = {}
-            for lib in SOURCES:
-                so = ctypes.CDLL(str(out / f"lib{lib}.so"))
-                init = getattr(so, f"lh_{lib}_init")
-                init.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-                init.restype = ctypes.c_int
-                err = getattr(so, f"lh_{lib}_error_string")
-                err.argtypes = [ctypes.c_int]
-                err.restype = ctypes.c_char_p
-                torch.cuda.init()
-                for table in (fp.FOLDS_NP, fp.TOPFM_NP):
-                    if not (table.flags.c_contiguous and table.dtype == np.int32):
-                        raise ValueError("constant tables must be C-ordered int32")
-                rc = init(
-                    fp.FOLDS_NP.ctypes.data_as(ctypes.c_void_p),
-                    fp.TOPFM_NP.ctypes.data_as(ctypes.c_void_p),
-                )
-                if rc:
-                    raise RuntimeError(
-                        f"lh_{lib}_init: {err(rc).decode()} (code {rc})"
-                    )
-                loaded[lib] = so
+            loaded = {
+                lib: load(lib, fp.FOLDS_NP, fp.TOPFM_NP, out)
+                for lib in sorted({lib for lib, _, _ in ENTRIES.values()})
+            }
             for sym, (lib, ins, outs) in ENTRIES.items():
                 fn = getattr(loaded[lib], sym)
                 fn.argtypes = (

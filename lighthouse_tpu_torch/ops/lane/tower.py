@@ -14,9 +14,9 @@ The bodies below are the plain PyTorch versions of the kernels, operation
 for operation the reference's (the same Karatsuba stacks, the same lazy
 sums, `reduce_light` where it puts it), so the limb-bounds certificate
 covers them and the CPU tests compare limbs exactly. `f2mul`, `f2sqr`,
-`f6mul` and `f12mul` are KernelOps (csrc/tower.cu); `_f12sqr_body` and
-`_f12mul_034_body` run inside the Miller kernels (csrc/miller.cu) and have
-no standalone kernel yet.
+`f6mul`, `f12mul`, `f12sqr` and `f12mul_034` are KernelOps (csrc/tower.cu);
+the bodies of the last two also run inside the Miller kernels
+(csrc/miller.cu), fused into one doubling or addition iteration.
 
 Laziness contract (the reference's): entries re-normalize, f2/f6 outputs
 are standard; f12mul outputs <=3-unit and f12sqr <=4-unit lazy sums.
@@ -206,6 +206,8 @@ f2mul = fp.KernelOp(_f2mul_body, "f2mul", "lh_f2mul")
 f2sqr = fp.KernelOp(_f2sqr_body, "f2sqr", "lh_f2sqr")
 f6mul = fp.KernelOp(_f6mul_body, "f6mul", "lh_f6mul")
 f12mul = fp.KernelOp(_f12mul_body, "f12mul", "lh_f12mul")
+f12sqr = fp.KernelOp(_f12sqr_body, "f12sqr", "lh_f12sqr")
+f12mul_034 = fp.KernelOp(_f12mul_034_body, "f12mul_034", "lh_f12mul_034")
 
 
 # ------------------------------------------------------------ glue

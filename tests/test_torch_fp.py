@@ -85,7 +85,7 @@ def test_cuda_header_depths_equal_schedule():
         "mul.entry_a", "mul.entry_b", "mul.wide", "mul.fold37", "mul.fold36",
         "mul.fold35", "sqr.entry", "rl.entry", "rl.fold_a", "rl.fold_b",
         "canon.entry", "canon.fold_a", "canon.fold_b", "canon.fold_c",
-        "canon.fold_d",
+        "canon.fold_d", "norm3.kernel",
     ):
         name = site.replace(".", "_").upper()
         assert consts[name] == port._SCHED[site], site
@@ -138,3 +138,48 @@ def test_canonical_and_eq_zero_match_python_ints():
     got = port.eq_zero(zero_like).tolist()
     assert got == [True] * len(xs) + [True] + [x == y for x, y in zip(xs, ys)]
     assert port.eq(a, a).all() and not port.eq(a[:, :7], b[:, :7]).any()
+
+
+@pytest.mark.parametrize("shape", [(36, 8), (2, 36, 4)])
+def test_norm3_plain_body_equals_reference(shape):
+    """The public carry reset on a 12-term lazy add chain (the depth the
+    limb-bounds certificate covers at the norm3.kernel site)."""
+    rng = np.random.default_rng(zlib.crc32(f"norm3{shape}".encode()))
+    x = sum(lazy(rng, shape, terms=1) for _ in range(12))
+    port.reset_counts()
+    got = port.norm3(torch.from_numpy(x))
+    want = np.asarray(ref.norm3(jnp.asarray(x)))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert port.unpack(got) == port.unpack(x)
+    assert not port.LAUNCHES and not port.PLAIN_CUDA_CALLS
+
+
+def test_batch_inv_equals_reference():
+    """K = 3 slots of S = 4 lanes, one slot zero on one lane: the
+    reference's limbs, and the inverses (zero for zero) as Python ints."""
+    rnd = random.Random(13)
+    vals = [[rnd.randrange(1, P) for _ in range(4)] for _ in range(3)]
+    vals[1][2] = 0
+    a = np.stack([port.pack(v) for v in vals])
+    got = port.batch_inv(torch.from_numpy(a))
+    want = np.asarray(ref.batch_inv(jnp.asarray(a)))
+    assert got.shape == (3, port.W, 4) and np.array_equal(got.numpy(), want)
+    assert [port.unpack(got[k]) for k in range(3)] == [
+        [pow(v, P - 2, P) for v in row] for row in vals
+    ]
+
+
+def test_kernel_library_refuses_fortran_ordered_tables():
+    """The libraries copy FOLDS/TOPFM by pointer: a table that is not
+    C-ordered int32 (the concatenation of transposes comes out in Fortran
+    order) is refused before anything is built or loaded."""
+    from lighthouse_tpu_torch.ops.lane import kernels
+
+    fortran = np.concatenate(
+        [port_base.FOLD_FULL.T, port_base.FOLD_2.T, port_base.FOLD_1.T], axis=1
+    ).astype(np.int32)
+    assert not fortran.flags.c_contiguous
+    with pytest.raises(ValueError, match="C-ordered int32"):
+        kernels.load("fp_mul", fortran, port.TOPFM_NP)
+    with pytest.raises(ValueError, match="C-ordered int32"):
+        kernels.load("fp_mul", port.FOLDS_NP, port.TOPFM_NP.astype(np.int64))

@@ -77,8 +77,8 @@ BODIES = {
     "f2sqr": (tower.f2sqr, ref_tower._f2sqr_body, [F2], [3]),
     "f6mul": (tower.f6mul, ref_tower._f6mul_body, [F6, F6], [3, 3]),
     "f12mul": (tower.f12mul, ref_tower._f12mul_body, [F12, F12], [3, 3]),
-    "f12sqr": (tower._f12sqr_body, ref_tower._f12sqr_body, [F12], [4]),
-    "f12mul_034": (tower._f12mul_034_body, ref_tower._f12mul_034_body,
+    "f12sqr": (tower.f12sqr, ref_tower._f12sqr_body, [F12], [4]),
+    "f12mul_034": (tower.f12mul_034, ref_tower._f12mul_034_body,
                    [F12, F2, F2, F2], [4, 1, 1, 1]),
 }
 
@@ -100,6 +100,26 @@ def test_body_equals_reference_limb_for_limb(name):
         got = port_op(c["folds"], c["topf"], *targs)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert np.array_equal(got.numpy(), want)
+    assert not fp.LAUNCHES and not fp.PLAIN_CUDA_CALLS
+
+
+def test_unfused_miller_doubling_equals_dbl_iter():
+    """f12mul_034(f12sqr(f), c0, c1, c4) through the two standalone ops
+    gives miller_dbl_iter's f, limb for limb, with the line coefficients
+    of the doubling step on the same operands (S = 4)."""
+    rng = np.random.default_rng(34)
+
+    def canon(*comp):
+        return rng.integers(0, 1 << fp.B, (*comp, fp.W, 4), dtype=np.int32)
+
+    f = canon(*F12) + canon(*F12) - canon(*F12)  # a lazy 3-unit f
+    args = [torch.from_numpy(a) for a in (f, canon(*F2), canon(*F2), canon(*F2), canon(), canon())]
+    c = fp.consts("cpu")
+    *_, c0, c1, c4 = pairing._dbl_step_body(c["folds"], c["topf"], *args[1:])
+    fp.reset_counts()
+    got = tower.f12mul_034(tower.f12sqr(args[0]), c0, c1, c4)
+    want = pairing._dbl_iter(*args)[0]
+    assert got.shape == want.shape and torch.equal(got, want)
     assert not fp.LAUNCHES and not fp.PLAIN_CUDA_CALLS
 
 
