@@ -16,7 +16,9 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the nine CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function.
+   function; for the two cooperative kernels (csrc/coop.cuh), their
+   ptxas line, the dynamic shared memory the library launches them with
+   (held equal to their program's layout) and their program's shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
    slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
@@ -30,10 +32,12 @@ non-zero before the last line:
    pairs: every distinct operand layout each kernel met there (shapes, and
    broadcast views such as frob2's gamma table or the first iteration's
    expanded 1), each at S = 1, 2, 4097 and at 128 lanes with a leading
-   stack of 2. All torch.equal. Each timed at S = 4096 (profiler device
-   ms, CUDA-event call ms, plain ms, bound) and at the pairing path's own
-   width. The ripple glue of canonical(); a small MSM against the host
-   group law.
+   stack of 2 (the cooperative miller_dbl_iter and cyc_sqr also at
+   S = 1024, the BLS bucket-1024 width). All torch.equal. Each timed at
+   S = 4096 (profiler device ms, CUDA-event call ms, plain ms, bound) and
+   at the pairing path's own width; the cooperative two also in device
+   ms and bound at S = 1, 2 and 1024. The ripple glue of
+   canonical(); a small MSM against the host group law.
 4. pairing128: a 128-lane Miller loop against the host Miller loop on 4
    lanes; the product over 64 bilinear couples is 1, with one Q swapped it
    is not, with a few couples masked by p_inf it still is.
@@ -82,7 +86,9 @@ non-zero before the last line:
 8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
    slice 4's paths' for theirs; launches_kzg: phase 5's; launches_slice4:
    phase 7's; row 23 of the TPU-kernel table is two entries,
-   ubench_mul and ubench_mul_chain); 9. the `ok` JSON line (last).
+   ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
+   stack, spills and static shared memory; `launch_smem`: the cooperative
+   kernels' dynamic shared memory); 9. the `ok` JSON line (last).
 """
 
 from __future__ import annotations
@@ -160,6 +166,18 @@ PER_MSM = {"jac_add_f1": 90, "sqr": 180, "mul": 540, "canon_reduce": 180, "jac_d
 PER_CHECK = {"miller_dbl_iter": 63, "miller_add_iter": 5, "f12mul": 36, "cyc_sqr": 315,
              "f6mul": 4, "f2mul": 4, "f2sqr": 1, "reduce_light": 1, "mul": 233,
              "sqr": 381, "canon_reduce": 1}
+# slice 5's cooperative kernels (csrc/coop.cuh): also held at the bucket-1024
+# width and read in device ms at the widths their paths run
+REDESIGNED = ("miller_dbl_iter", "cyc_sqr")
+REDESIGNED_S = (1, 2, 1024)
+# per kernel k_<name>: ptxas registers, static shared memory, stack, spills
+PTXAS: dict = {}
+# per cooperative kernel: the dynamic shared memory (bytes) its blocks launch
+# with, read from the library (lh_miller_launch_smem)
+LAUNCH_SMEM: dict = {}
+_PTXAS_FIELDS = {"registers": r"Used (\d+) registers", "smem": r"(\d+) bytes smem",
+                 "stack": r"(\d+) bytes stack frame", "spill_stores": r"(\d+) bytes spill stores",
+                 "spill_loads": r"(\d+) bytes spill loads"}
 # the lane width each recorded kernel runs at on the KZG pairing path
 # (the rest: 1, after the lane product)
 PATH_S = {"miller_dbl_iter": 2, "miller_add_iter": 2}
@@ -345,7 +363,7 @@ def _short_name(mangled: str) -> str:
 
 
 def phase_build() -> None:
-    from lighthouse_tpu_torch.ops.lane import kernels
+    from lighthouse_tpu_torch.ops.lane import coop, kernels
 
     t0 = time.perf_counter()
     kernels.libs()
@@ -353,7 +371,8 @@ def phase_build() -> None:
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         nvcc_seconds=f"{info.get('seconds', 0.0):.1f}",
         built=",".join(info.get("built", [])) or "cached")
-    # ptxas -v: registers, stack frame and spill bytes of each function
+    # ptxas -v: registers, stack frame and spill bytes of each function;
+    # the kernels' (k_<name>) kept in PTXAS for the `kernels` line
     for lib, log in sorted(info.get("logs", {}).items()):
         fn = None
         for line in log.splitlines():
@@ -363,6 +382,22 @@ def phase_build() -> None:
                 continue
             if fn and ("registers" in line or "spill" in line):
                 print(f"  ptxas {lib} {fn}: {line.split(':', 1)[-1].strip()}", flush=True)
+                if fn.startswith("k_"):
+                    row = PTXAS.setdefault(fn[2:], {})
+                    for key, pat in _PTXAS_FIELDS.items():
+                        if (m := re.search(pat, line)):
+                            row[key] = int(m.group(1))
+    # the cooperative kernels' dynamic shared memory, as the library
+    # launches them, against their programs' layout (coop.stats)
+    lib = kernels.libs()["miller"]
+    for name in REDESIGNED:
+        st = coop.stats(coop.slot(name))
+        LAUNCH_SMEM[name] = lib.lh_miller_launch_smem(coop.slot(name))
+        if LAUNCH_SMEM[name] != st["smem_bytes"]:
+            raise AssertionError(f"{name} launches with {LAUNCH_SMEM[name]} B of shared "
+                                 f"memory, its program lays out {st['smem_bytes']} B")
+        say("build", kernel=name, ptxas=json.dumps(PTXAS[name], separators=(",", ":")),
+            launch_smem=LAUNCH_SMEM[name], coop=json.dumps(st, separators=(",", ":")))
 
 
 def _inputs(rng, shape, kind):
@@ -621,21 +656,40 @@ def _layout(key) -> str:
                     for shape, contiguous in key)
 
 
-def _widths(full) -> dict:
+def _widths(full, bucket: bool = False) -> dict:
     """A recorded operand set cut to the widths every kernel must take: 1,
     2, its own, and 2 x 128 (a leading stack of 2; lanes repeated where the
-    record is narrower than 256)."""
+    record is narrower than 256); with `bucket`, also 1,024 (the BLS
+    bucket-1024 width)."""
     def two_128(a):
         if a.shape[-1] < 256:
             a = a[..., torch.arange(256, device=a.device) % a.shape[-1]]
         return torch.stack([a[..., :128], a[..., 128:256]])
 
-    return {
+    cuts = {
         "S=1": [a[..., :1] for a in full],
         "S=2": [a[..., :2] for a in full],
         f"S={full[0].shape[-1]}": list(full),
         "2x128": [two_128(a) for a in full],
     }
+    if bucket and full[0].shape[-1] > 1024:
+        cuts["S=1024"] = [a[..., :1024] for a in full]
+    return cuts
+
+
+def _widths_ms(name: str, main) -> dict:
+    """A redesigned kernel's device ms (profiler) and bound at each width
+    of REDESIGNED_S, on the recorded operands (its call ms: path_call_ms)."""
+    out = {}
+    for S in REDESIGNED_S:
+        args = [a[..., :S].contiguous() for a in main]
+        ms, by = _kernel_ms(name, lambda: _op(name)(*args))
+        outs = _op(name)(*args)
+        out[f"ms_S{S}"] = ms
+        out[f"bound_ms_S{S}"] = bound_ms(name, args, outs if isinstance(outs, tuple) else (outs,))[0]
+        if by != "profiler":
+            out[f"ms_S{S}_timed_by"] = by
+    return out
 
 
 def phase_kernels() -> dict:
@@ -676,7 +730,7 @@ def phase_kernels() -> dict:
             _hold(name, args, f"{label} [{_layout(key)}] {which}")
             for key, entry in sets.items()
             for which in ("first", "last")
-            for label, args in _widths(entry[which]).items()
+            for label, args in _widths(entry[which], name in REDESIGNED).items()
         )
         # timed on the layout the path calls most, made contiguous as the
         # path hands it over (a slice of the record would add a copy per call)
@@ -688,8 +742,11 @@ def phase_kernels() -> dict:
         path_args = [a[..., :s_path].contiguous() for a in main]
         row.update(max_abs_err=max(row["max_abs_err"], max_err), path_S=s_path,
                    path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
+        if name in REDESIGNED:
+            row.update(_widths_ms(name, main))
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
-            widths="S=1,S=2,S=4097,2x128", operands="recorded",
+            widths="S=1,S=2,S=4097,2x128" + (",S=1024" if name in REDESIGNED else ""),
+            operands="recorded",
             layouts="|".join(f"{_layout(k)}:{e['calls']}" for k, e in sets.items()),
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()})
 
@@ -795,7 +852,7 @@ def _device_share(fn, wall_s: float) -> str:
     dev_us = sum(_device_time(e) for e in events)
     if dev_us <= 0:
         return "not_measured(no device time in the profiler trace)"
-    top = sorted(events, key=lambda e: -_device_time(e))[:5]
+    top = sorted(events, key=lambda e: -_device_time(e))[:8]
     names = ",".join(f"{e.key.replace('(anonymous namespace)::', '')[:28]}:"
                      f"{_device_time(e) / 1e3:.2f}ms" for e in top)
     return (f"{dev_us / 1e6 / wall_s:.4f} device_ms={dev_us / 1e3:.2f} "
@@ -1408,6 +1465,11 @@ def main() -> int:
             **{key: k[key] for key in ("call_ms", "path_S", "path_call_ms", "bls_path_S",
                                        "bls_path_call_ms", "slice4_path_S",
                                        "slice4_path_call_ms") if key in k},
+            # slice 5: the redesigned kernels' device ms and bound at each
+            # path width, and their blocks' dynamic shared memory
+            **{key: v for key, v in k.items() if key.startswith(("ms_S", "bound_ms_S"))},
+            "ptxas": PTXAS.get(name, {}),
+            **({"launch_smem": LAUNCH_SMEM[name]} if name in LAUNCH_SMEM else {}),
         })
     say("phase", name="all", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)

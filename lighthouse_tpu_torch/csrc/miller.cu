@@ -1,22 +1,40 @@
-// K10, K11, K12: the pairing kernels over tower.cuh, the fused Miller-loop
-// iterations `miller_dbl_iter` and `miller_add_iter` and the final
-// exponentiation's cyclotomic square `cyc_sqr`.
+// K10, K11, K12: the pairing kernels, the fused Miller-loop iterations
+// `miller_dbl_iter` and `miller_add_iter` and the final exponentiation's
+// cyclotomic square `cyc_sqr`.
 //
 // `miller_dbl_iter` / `miller_add_iter` replace the reference's Pallas
 // kernels of those names (lighthouse_tpu/ops/lane/pairing.py:127-128,
 // `_dbl_iter_body` / `_add_iter_body`): per lane, the G2 doubling (or mixed
 // addition) step in Jacobian coordinates with the line coefficients
 // (c0, c1, c4) evaluated at P, then f <- f12sqr(f) (doubling only) and the
-// sparse line product f * (c0 + c1 v + c4 v w).
+// sparse line product f * (c0 + c1 v + c4 v w). `cyc_sqr` replaces the
+// reference's Pallas kernel `cyc_sqr` (pairing.py:257, `_cyc_sqr_body`):
+// the Granger-Scott squaring of a cyclotomic Fp12, nine Fp2 squarings of
+// the slot pairs (c0, c3), (c1, c4), (c2, c5), then each output slot
+// reduce_light(3 t +- 2 c_k).
 //
 // Bound on the H100: integer operations. A doubling iteration does 106 Fp
 // products (31 in the step, 36 in f12sqr, 39 in the 034 product), some
-// 770,000 int32 operations against 2,592 bytes in and out. Design: one
-// thread per lane element; f, the point and the line live in the thread's
-// local memory (well over the 255-register limit), f is squared and
-// multiplied in place, and every Fp product runs in the out-of-line
-// `fp_mul`. On the KZG path the loop runs at S = 2 (two threads), on the
-// BLS buckets at S >= 128.
+// 770,000 int32 operations against 2,592 bytes in and out; `cyc_sqr` 18
+// products (~130,000 operations against 2 x 1,728 bytes). `cyc_sqr` runs
+// at a lane width of 1 (315 launches per final exponentiation), where one
+// element is all the work there is; `miller_dbl_iter` at the BLS bucket's
+// width (up to 1,024 lanes) and at 1-2 lanes in the final checks.
+//
+// `miller_dbl_iter` and `cyc_sqr` are cooperative (coop.cuh): a block of
+// DBL_WARPS / CYC_WARPS warps per lane element, the element's rows in
+// shared memory, each Fp product one warp's job, the independent products
+// of a stage side by side. Their programs are traced from the plain bodies
+// by ops/lane/coop.py, which writes them into the generated header
+// coop_programs.h (kernels.build, in the build directory): the doubling
+// iteration is 7 stages of
+// 186 jobs (106 products, 80 reduce_light) on 128 rows, cyc_sqr 2 stages
+// (18 products, then 12 reduce_light) on 42 rows. The grid is one block
+// per lane element. `miller_add_iter` keeps one thread per lane element:
+// f, the point and the line in the thread's local memory, every Fp product
+// in the out-of-line `fp_mul`.
+#include "coop.cuh"
+#include "coop_programs.h"
 #include "tower.cuh"
 
 namespace {
@@ -26,43 +44,6 @@ using lh::F12;
 using lh::W;
 using lh::lin2;
 using lh::lin3;
-
-// `_dbl_step_body`
-__device__ __noinline__ void dbl_step(const int* XT, const int* YT,
-                                      const int* ZT, const int* xP,
-                                      const int* yP, int* X3, int* Y3, int* Z3,
-                                      int* c0, int* c1, int* c4) {
-  int A[F2], Bv[F2], Zsq[F2], Cv[F2], D[F2], E[F2], t[F2], u[F2];
-  lh::f2sqr(A, XT);
-  lh::f2sqr(Bv, YT);
-  lh::f2sqr(Zsq, ZT);
-  lh::f2sqr(Cv, Bv);
-  lin2<F2>(t, 1, XT, 1, Bv);
-  lh::f2sqr(u, t);
-  lin3<F2>(D, 1, u, -1, A, -1, Cv);            // F2S(XT + Bv) - A - Cv
-  lh::f2_reduce_light(D);
-  lin2<F2>(D, 1, D, 1, D);                     // D + D
-  lin2<F2>(E, 1, A, 2, A);                     // A + A + A
-  lh::f2sqr(t, E);                             // Fv
-  lin2<F2>(X3, 1, t, -2, D);                   // Fv - D - D
-  lh::f2_reduce_light(X3);
-  lh::f2mul(u, YT, ZT);                        // YZ
-  lin2<F2>(Z3, 1, u, 1, u);                    // YZ + YZ
-  lin2<F2>(t, 1, D, -1, X3);
-  lh::f2mul(Y3, E, t);
-  lin2<F2>(Y3, 1, Y3, -8, Cv);                 // F2M(E, D - X3) - 8 Cv
-  lh::f2_reduce_light(Y3);
-  lh::f2mul(t, XT, A);
-  lin2<F2>(c0, 3, t, -2, Bv);                  // F2M(XT, A) * 3 - (Bv + Bv)
-  lh::f2_reduce_light(c0);
-  lin2<F2>(t, -3, A, 0, A);                    // A * -3
-  lh::f2mul(c1, t, Zsq);
-  lh::fp_mul(c1, c1, xP);                      // the Fp xP broadcast over c1's
-  lh::fp_mul(c1 + W, c1 + W, xP);              // two components
-  lh::f2mul(c4, Z3, Zsq);
-  lh::fp_mul(c4, c4, yP);
-  lh::fp_mul(c4 + W, c4 + W, yP);
-}
 
 // `_add_step_body`
 __device__ __noinline__ void add_step(const int* XT, const int* YT,
@@ -108,32 +89,6 @@ __device__ __noinline__ void add_step(const int* XT, const int* YT,
 }
 
 __global__ void __launch_bounds__(lh::THREADS)
-    k_miller_dbl_iter(const int* __restrict__ f_in, const int* __restrict__ xt,
-                      const int* __restrict__ yt, const int* __restrict__ zt,
-                      const int* __restrict__ xp, const int* __restrict__ yp,
-                      int* __restrict__ f_out, int* __restrict__ x3_out,
-                      int* __restrict__ y3_out, int* __restrict__ z3_out, int K,
-                      int S) {
-  long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int f[F12], XT[F2], YT[F2], ZT[F2], xP[W], yP[W];
-  int X3[F2], Y3[F2], Z3[F2], c0[F2], c1[F2], c4[F2];
-  lh::load_rows<12>(f, f_in, k, s, S);
-  lh::load_rows<2>(XT, xt, k, s, S);
-  lh::load_rows<2>(YT, yt, k, s, S);
-  lh::load_rows<2>(ZT, zt, k, s, S);
-  lh::load_rows<1>(xP, xp, k, s, S);
-  lh::load_rows<1>(yP, yp, k, s, S);
-  dbl_step(XT, YT, ZT, xP, yP, X3, Y3, Z3, c0, c1, c4);
-  lh::f12sqr(f, f);
-  lh::f12mul_034(f, f, c0, c1, c4);
-  lh::store_rows<12>(f_out, f, k, s, S);
-  lh::store_rows<2>(x3_out, X3, k, s, S);
-  lh::store_rows<2>(y3_out, Y3, k, s, S);
-  lh::store_rows<2>(z3_out, Z3, k, s, S);
-}
-
-__global__ void __launch_bounds__(lh::THREADS)
     k_miller_add_iter(const int* __restrict__ f_in, const int* __restrict__ xt,
                       const int* __restrict__ yt, const int* __restrict__ zt,
                       const int* __restrict__ xq, const int* __restrict__ yq,
@@ -161,82 +116,109 @@ __global__ void __launch_bounds__(lh::THREADS)
   lh::store_rows<2>(z3_out, Z3, k, s, S);
 }
 
-// ------------------------------------------------------------ cyc_sqr
-//
-// `cyc_sqr`, the Granger-Scott squaring of a cyclotomic Fp12, replaces the
-// reference's Pallas kernel `cyc_sqr`
-// (lighthouse_tpu/ops/lane/pairing.py:257, `_cyc_sqr_body`): the six Fp2
-// slots c_k (k = 2i + j for slot (j, i)) pair up as Fp4 elements (c0, c3),
-// (c1, c4), (c2, c5); nine Fp2 squarings give their squares, and each
-// output slot is reduce_light(3 t +- 2 c_k).
-//
-// Bound on the H100: integer operations (18 Fp products, ~130,000 int32
-// operations against 2 x 1,728 bytes). Design: one thread per lane
-// element; the Fp12 and the nine squares live in the thread's local memory,
-// the squarings run in the out-of-line `f2sqr` / `fp_mul`, and each output
-// slot is written in place over the input slot it reads. On the final
-// exponentiation's path it runs at S = 1, 315 times per pairing check.
+// ------------------------------------------------------------ cooperative
 
-// offset of slot k = 2i + j, stored at [j][i]
-__device__ __forceinline__ int slot(int k) { return ((k % 2) * 3 + k / 2) * F2; }
+constexpr int DBL_WARPS = 8;  // warps per lane element (ops/lane/coop.py PROGRAMS)
+constexpr int CYC_WARPS = 9;
 
-__device__ __noinline__ void cyc_sqr(int* f) {
-  int sq[9 * F2], x[F2];
-#pragma unroll 1
-  for (int q = 0; q < 3; ++q) {
-    const int* a = f + slot(q);
-    const int* b = f + slot(q + 3);
-    lh::f2sqr(sq + (3 * q) * F2, a);
-    lh::f2sqr(sq + (3 * q + 1) * F2, b);
-    lh::lin2<F2>(x, 1, a, 1, b);
-    lh::f2sqr(sq + (3 * q + 2) * F2, x);
-  }
-  // fp4(q) = (a2 + xi b2, ab2 - a2 - b2) from sq[3q], sq[3q+1], sq[3q+2];
-  // slot k <- 3 t + sign 2 c_k, t and the sign per slot as in the body.
-#pragma unroll 2
-  for (int i = 0; i < W; ++i) {
-#define S2(n, c) sq[(n) * F2 + (c) * W + i]
-    int ta[3][2], tb[3][2];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      ta[q][0] = S2(3 * q, 0) + (S2(3 * q + 1, 0) - S2(3 * q + 1, 1));
-      ta[q][1] = S2(3 * q, 1) + (S2(3 * q + 1, 0) + S2(3 * q + 1, 1));
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        tb[q][c] = S2(3 * q + 2, c) - S2(3 * q, c) - S2(3 * q + 1, c);
-      }
-    }
-#undef S2
-    const int t2b_xi[2] = {tb[2][0] - tb[2][1], tb[2][0] + tb[2][1]};
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      int* o;
-      o = f + slot(0) + c * W + i;  *o = 3 * ta[0][c] - 2 * *o;
-      o = f + slot(3) + c * W + i;  *o = 3 * tb[0][c] + 2 * *o;
-      o = f + slot(2) + c * W + i;  *o = 3 * ta[1][c] - 2 * *o;
-      o = f + slot(5) + c * W + i;  *o = 3 * tb[1][c] + 2 * *o;
-      o = f + slot(4) + c * W + i;  *o = 3 * ta[2][c] - 2 * *o;
-      o = f + slot(1) + c * W + i;  *o = 3 * t2b_xi[c] + 2 * *o;
-    }
-  }
-#pragma unroll 1
-  for (int r = 0; r < 12; ++r) lh::fp_reduce_light(f + r * W);
+using lh::coop::c_prog_cyc_sqr;
+using lh::coop::c_prog_miller_dbl_iter;
+
+// the kernels load 20 / 12 input rows and store 18 / 12 output rows
+static_assert(lh::coop::MILLER_DBL_ITER_INS == 20 && lh::coop::MILLER_DBL_ITER_OUTS == 18,
+              "miller_dbl_iter: f, XT, YT, ZT, xP, yP -> f, X3, Y3, Z3");
+static_assert(lh::coop::CYC_SQR_INS == 12 && lh::coop::CYC_SQR_OUTS == 12,
+              "cyc_sqr: f -> f^2");
+
+// the dynamic shared memory each block launches with
+constexpr int DBL_SMEM = 4 * lh::coop::smem_ints(DBL_WARPS, lh::coop::MILLER_DBL_ITER_ROWS);
+constexpr int CYC_SMEM = 4 * lh::coop::smem_ints(CYC_WARPS, lh::coop::CYC_SQR_ROWS);
+static_assert(DBL_SMEM <= 227 * 1024 && CYC_SMEM <= 227 * 1024, "a block's shared memory");
+
+__device__ __forceinline__ int* dyn_smem() {
+  extern __shared__ int lh_smem[];
+  return lh_smem;
 }
 
-__global__ void __launch_bounds__(lh::THREADS)
-    k_cyc_sqr(const int* __restrict__ a, int* __restrict__ out, int K, int S) {
+// Block -> lane element (k, s) of the K x S grid.
+__device__ __forceinline__ void block_elem(int S, long* k, long* s) {
+  *k = (long)blockIdx.x / S;
+  *s = (long)blockIdx.x - *k * S;
+}
+
+// Limb i of row r of lane element (k, s) of a [K, C rows of W, S] batch.
+__device__ __forceinline__ int& at(int* __restrict__ g, int C, int r, int i, long k,
+                                   long s, int S) {
+  return g[k * C * W * S + s + (long)(r * W + i) * S];
+}
+
+__global__ void __launch_bounds__(DBL_WARPS * 32)
+    k_miller_dbl_iter(const int* __restrict__ f_in, const int* __restrict__ xt,
+                      const int* __restrict__ yt, const int* __restrict__ zt,
+                      const int* __restrict__ xp, const int* __restrict__ yp,
+                      int* __restrict__ f_out, int* __restrict__ x3_out,
+                      int* __restrict__ y3_out, int* __restrict__ z3_out, int S) {
+  constexpr int NW = DBL_WARPS;
   long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int f[lh::F12];
-  lh::load_rows<12>(f, a, k, s, S);
-  cyc_sqr(f);
-  lh::store_rows<12>(out, f, k, s, S);
+  block_elem(S, &k, &s);
+  int* smem = dyn_smem();
+  int* rows = lh::coop::setup<NW>(smem);
+  // the program's input rows: f (12), XT, YT, ZT (2 each), xP, yP
+  lh::coop::load<NW>(rows, f_in, 12, k, s, S);
+  lh::coop::load<NW>(rows + 12 * W, xt, 2, k, s, S);
+  lh::coop::load<NW>(rows + 14 * W, yt, 2, k, s, S);
+  lh::coop::load<NW>(rows + 16 * W, zt, 2, k, s, S);
+  lh::coop::load<NW>(rows + 18 * W, xp, 1, k, s, S);
+  lh::coop::load<NW>(rows + 19 * W, yp, 1, k, s, S);
+  __syncthreads();
+  lh::coop::run<NW>(c_prog_miller_dbl_iter, smem);
+  // its outputs: f (12), X3, Y3, Z3 (2 each)
+  for (int t = threadIdx.x; t < 18 * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W;
+    const int v = lh::coop::out_limb(c_prog_miller_dbl_iter, smem, NW, o, i);
+    if (o < 12) {
+      at(f_out, 12, o, i, k, s, S) = v;
+    } else {
+      at(o < 14 ? x3_out : (o < 16 ? y3_out : z3_out), 2, o % 2, i, k, s, S) = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CYC_WARPS * 32)
+    k_cyc_sqr(const int* __restrict__ a, int* __restrict__ out, int S) {
+  constexpr int NW = CYC_WARPS;
+  long k, s;
+  block_elem(S, &k, &s);
+  int* smem = dyn_smem();
+  lh::coop::load<NW>(lh::coop::setup<NW>(smem), a, 12, k, s, S);
+  __syncthreads();
+  lh::coop::run<NW>(c_prog_cyc_sqr, smem);
+  for (int t = threadIdx.x; t < 12 * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W;
+    at(out, 12, o, i, k, s, S) = lh::coop::out_limb(c_prog_cyc_sqr, smem, NW, o, i);
+  }
 }
 
 }  // namespace
 
 LH_EXPORT int lh_miller_init(const void* folds, const void* topfm) {
-  return lh::copy_consts(folds, topfm);
+  int e = lh::copy_consts(folds, topfm);
+  if (!e) e = lh::coop::copy_tables(folds, topfm);
+  if (!e) {
+    e = (int)cudaFuncSetAttribute(k_miller_dbl_iter,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, DBL_SMEM);
+  }
+  if (!e) {
+    e = (int)cudaFuncSetAttribute(k_cyc_sqr, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  CYC_SMEM);
+  }
+  return e;
+}
+
+// The dynamic shared memory (bytes) a block of program `slot` (0:
+// miller_dbl_iter, 1: cyc_sqr) launches with; -1 for another slot.
+LH_EXPORT int lh_miller_launch_smem(int slot) {
+  return slot == 0 ? DBL_SMEM : (slot == 1 ? CYC_SMEM : -1);
 }
 
 LH_EXPORT const char* lh_miller_error_string(int e) {
@@ -247,11 +229,11 @@ LH_EXPORT int lh_miller_dbl_iter(const void* f, const void* xt, const void* yt,
                                  const void* zt, const void* xp, const void* yp,
                                  void* f_out, void* x3, void* y3, void* z3,
                                  int K, int S, void* stream) {
-  k_miller_dbl_iter<<<lh::blocks_for(K, S), lh::THREADS, 0,
+  k_miller_dbl_iter<<<(unsigned)((long)K * S), DBL_WARPS * 32, DBL_SMEM,
                       (cudaStream_t)stream>>>(
       (const int*)f, (const int*)xt, (const int*)yt, (const int*)zt,
       (const int*)xp, (const int*)yp, (int*)f_out, (int*)x3, (int*)y3,
-      (int*)z3, K, S);
+      (int*)z3, S);
   return (int)cudaGetLastError();
 }
 
@@ -269,7 +251,7 @@ LH_EXPORT int lh_miller_add_iter(const void* f, const void* xt, const void* yt,
 }
 
 LH_EXPORT int lh_cyc_sqr(const void* a, void* out, int K, int S, void* stream) {
-  k_cyc_sqr<<<lh::blocks_for(K, S), lh::THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (int*)out, K, S);
+  k_cyc_sqr<<<(unsigned)((long)K * S), CYC_WARPS * 32, CYC_SMEM,
+              (cudaStream_t)stream>>>((const int*)a, (int*)out, S);
   return (int)cudaGetLastError();
 }

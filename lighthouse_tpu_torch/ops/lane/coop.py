@@ -1,0 +1,315 @@
+"""Programs of the cooperative pairing kernels (csrc/coop.cuh).
+
+A cooperative kernel gives each lane element a thread block of NW warps.
+The element's state lives in the block's shared memory as rows of W limbs,
+and each Fp product or `reduce_light` is one warp's job, limb-parallel
+across its 32 threads. A program says which jobs run and where
+their operands and results live. Its jobs fall into stages: the jobs of a
+stage are independent, the block's warps share them out, and a block
+barrier ends each stage.
+
+The programs are traced here from the plain bodies themselves
+(pairing._dbl_iter_body, pairing._cyc_sqr_body): run on symbolic rows,
+each of their Fp products and `reduce_light`s becomes a job whose operands
+are the integer combinations of rows that the body's lazy sums (a0 + a1,
+3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
+where it reads its operands. A lazy sum is an exact linear combination of
+int32 limbs, inside the limb-bounds certificate, so the order of its adds
+does not change the limbs. The Fp products and `reduce_light` keep
+`_SCHED`'s carry passes; the device computes each one as fp._mul_body
+(both entry norms) and fp._reduce_light_body do.
+
+Each job is scheduled at the earliest stage its operands allow, and its
+result takes the lowest shared-memory row that no later stage reads. The
+encoded program (int32 words) is compiled into the library's constant
+bank: `header` writes it as a generated header that kernels.build hands to
+nvcc. `run_reference` executes an encoded program on CPU tensors with the
+plain Fp bodies, checking that no stage writes a row that the same stage
+reads: the CPU tests hold it limb for limb against the plain bodies.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+
+import numpy as np
+import torch
+
+from . import fp, pairing
+
+W = fp.W
+
+# job kinds and the word layout, mirrored by csrc/coop.cuh (pinned by
+# tests/test_torch_coop.py)
+MUL, RL = 0, 1
+H_STAGES, H_JOBS, H_ROWS, H_OUTS, H_INS, H_STAGE0 = 0, 1, 2, 3, 4, 5
+JOB_WORDS = 3          # kind | na << 8 | nb << 16, out row, term offset
+OUT_WORDS = 2          # term offset, term count
+MAX_WORDS = 4096       # per program: a quarter of the 64 KiB constant bank
+MAX_TERMS = 255        # terms of one operand: the job word counts them in 8 bits
+SCRATCH = 164          # a warp's scratch: its padded product operand, a dump row
+NFOLD, CONVW = 41, 73
+TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
+
+# program slot -> (name, warps per lane element)
+PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9)}
+
+
+FP, FP2, FP12 = (), (2,), (2, 3, 2)
+
+
+def _lin(v: torch.Tensor) -> dict:
+    """The {row: coefficient} of one traced value (its coefficient vector)."""
+    return {int(r): int(v[r]) for r in v.nonzero().flatten().tolist()}
+
+
+class Tracer:
+    """A plain body's jobs, recorded by running the body on symbolic rows.
+
+    A traced value is an int64 tensor [..., 1, N]: its W axis cut to one
+    limb, its lane axis holding its coefficients over the rows (the
+    inputs, then each job's result). The bodies' lazy sums, stacks and
+    component slices are linear, so they compute every operand's
+    combination exactly; the tracer stands in for `folds`, and the Fp
+    bodies that see it (`_mul_body`, `_reduce_light_body`, see `_tracing`)
+    record one job per element of the stack they are given and return
+    that many fresh rows."""
+
+    N = 512  # rows a traced value can name
+
+    def __init__(self, fields):
+        self.n_in = sum(int(np.prod(c, dtype=np.int64)) for c in fields)
+        self.n = 0
+        self.jobs = []  # (kind, out row, operand {row: coefficient} dicts)
+        self.inputs = [self._fresh(c) for c in fields]
+
+    def _fresh(self, lead):
+        n = int(np.prod(lead, dtype=np.int64))
+        if self.n + n > self.N:
+            raise ValueError(f"a program of more than {self.N} rows")
+        out = torch.zeros((n, 1, self.N), dtype=torch.int64)
+        out[torch.arange(n), 0, self.n + torch.arange(n)] = 1
+        self.n += n
+        return out.reshape(*lead, 1, self.N)
+
+    def record(self, kind, *ops):
+        ops = torch.broadcast_tensors(*ops)
+        flat = [op.reshape(-1, self.N) for op in ops]
+        for e in range(flat[0].shape[0]):
+            self.jobs.append((kind, self.n + e, tuple(_lin(f[e]) for f in flat)))
+        return self._fresh(ops[0].shape[:-2])
+
+
+_TRACE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _tracing():
+    """fp's two Fp bodies record when their `folds` is a Tracer, and run as
+    before for every other caller (a plain body on another thread too)."""
+    mul_body, rl_body = fp._mul_body, fp._reduce_light_body
+
+    def mul(a, b, folds, topf, norm_a=True, norm_b=True):
+        if not isinstance(folds, Tracer):
+            return mul_body(a, b, folds, topf, norm_a, norm_b)
+        if not (norm_a and norm_b):
+            raise ValueError("a warp product normalizes both entries")
+        return folds.record(MUL, a, b)
+
+    def rl(x, folds, topf):
+        if not isinstance(folds, Tracer):
+            return rl_body(x, folds, topf)
+        return folds.record(RL, x)
+
+    with _TRACE_LOCK:
+        fp._mul_body, fp._reduce_light_body = mul, rl
+        try:
+            yield
+        finally:
+            fp._mul_body, fp._reduce_light_body = mul_body, rl_body
+
+
+def trace(body, fields):
+    """The jobs of `body(folds, topf, *operands)`, whose operands have the
+    component shapes `fields`, and its outputs' rows as {row: coefficient}."""
+    t = Tracer(fields)
+    with _tracing():
+        outs = body(t, None, *t.inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return t, [_lin(v) for o in outs for v in o.reshape(-1, Tracer.N)]
+
+
+# ------------------------------------------------------------ schedule
+
+
+def encode(b: Tracer, outs: list) -> np.ndarray:
+    """Schedule (earliest stage), allocate rows (lowest free row), encode."""
+    level = {r: 0 for r in range(b.n_in)}
+    for kind, r, ops in b.jobs:
+        level[r] = 1 + max(level[x] for op in ops for x in op)
+    n_st = max((level[r] for _, r, _ in b.jobs), default=0)
+    last = dict.fromkeys(range(b.n), -1)
+    for kind, r, ops in b.jobs:
+        for op in ops:
+            for x in op:
+                last[x] = max(last[x], level[r])
+    for o in outs:
+        for x in o:
+            last[x] = n_st + 1
+    if any(last[r] < 0 for _, r, _ in b.jobs):
+        raise ValueError("a job's result is never read")
+    # stages: products first (the long jobs), then reduce_light
+    order = sorted(range(len(b.jobs)), key=lambda j: (level[b.jobs[j][1]], b.jobs[j][0], j))
+    # rows: inputs at 0 .. n_in-1; a result takes the lowest row whose
+    # value no stage from its own on reads
+    where = {r: r for r in range(b.n_in)}
+    holder = {r: r for r in range(b.n_in)}  # arena row -> SSA row
+    n_rows = b.n_in
+    for st in range(1, n_st + 1):
+        free = sorted(a for a, r in holder.items() if last[r] < st)
+        for a in free:
+            del holder[a]
+        for j in order:
+            kind, r, ops = b.jobs[j]
+            if level[r] != st:
+                continue
+            a = free.pop(0) if free else n_rows
+            n_rows = max(n_rows, a + 1)
+            where[r] = a
+            holder[a] = r
+    terms = []
+
+    def put(lin: dict):
+        if not lin or len(lin) > MAX_TERMS:
+            raise ValueError(f"operand of {len(lin)} terms")
+        off = len(terms)
+        for x, c in sorted(lin.items()):
+            if not -128 <= c <= 127:
+                raise ValueError(f"coefficient {c} out of int8")
+            terms.append((where[x] << 8) | (c & 0xFF))
+        return off, len(lin)
+
+    jobs, starts = [], []
+    for j in order:
+        kind, r, ops = b.jobs[j]
+        while len(starts) < level[r]:
+            starts.append(len(jobs))
+        placed = [put(op) for op in ops]  # operand B's terms follow A's
+        na, nb = placed[0][1], (placed[1][1] if len(placed) > 1 else 0)
+        jobs.append((kind | (na << 8) | (nb << 16), where[r], placed[0][0]))
+    starts.append(len(jobs))
+    out_words = [put(o) for o in outs]
+    n_fixed = H_STAGE0 + len(starts)
+    t_base = n_fixed + JOB_WORDS * len(jobs) + OUT_WORDS * len(outs)
+    words = [n_st, len(jobs), n_rows, len(outs), b.n_in, *starts]
+    for w0, out, off in jobs:
+        words += [w0, out, t_base + off]
+    for off, n in out_words:
+        words += [t_base + off, n]
+    words += terms
+    if len(words) > MAX_WORDS:
+        raise ValueError(f"program of {len(words)} words > {MAX_WORDS}")
+    return np.asarray(words, dtype=np.int64).astype(np.int32)
+
+
+@functools.cache
+def program(slot: int) -> np.ndarray:
+    """The encoded program of PROGRAMS[slot] (int32 words, C order)."""
+    body, fields = {
+        # f, XT, YT, ZT, xP, yP -> f, X3, Y3, Z3
+        "miller_dbl_iter": (pairing._dbl_iter_body, (FP12, FP2, FP2, FP2, FP, FP)),
+        # f -> f^2
+        "cyc_sqr": (pairing._cyc_sqr_body, (FP12,)),
+    }[PROGRAMS[slot][0]]
+    return np.ascontiguousarray(encode(*trace(body, fields)))
+
+
+def slot(name: str) -> int:
+    """The program slot of kernel `name`."""
+    return next(k for k, (n, _) in PROGRAMS.items() if n == name)
+
+
+def stats(slot: int) -> dict:
+    """Stages, jobs, rows and the shared memory of one block (bytes)."""
+    w = program(slot)
+    n_st, n_jobs, n_rows = int(w[H_STAGES]), int(w[H_JOBS]), int(w[H_ROWS])
+    nw = PROGRAMS[slot][1]
+    starts = w[H_STAGE0 : H_STAGE0 + n_st + 1]
+    per_stage = np.diff(starts)
+    jobs = w[H_STAGE0 + n_st + 1 :][: JOB_WORDS * n_jobs].reshape(-1, JOB_WORDS)
+    return dict(
+        stages=n_st, jobs=n_jobs, rows=n_rows, warps=nw,
+        products=int((jobs[:, 0] & 0xFF == MUL).sum()),
+        rounds=int(sum(-(-int(n) // nw) for n in per_stage)),
+        smem_bytes=4 * (TABLES + nw * SCRATCH + n_rows * W),
+        words=len(w),
+    )
+
+
+def header() -> str:
+    """The generated header csrc/miller.cu includes (kernels.build writes
+    it into the build directory): per program, its rows, inputs and
+    outputs as constexprs and its words as a `__constant__` array."""
+    lines = ["// Generated from lighthouse_tpu_torch/ops/lane/coop.py; do not edit.",
+             "#pragma once", "", "namespace lh {", "namespace coop {"]
+    for slot, (name, _) in sorted(PROGRAMS.items()):
+        w, key = program(slot), name.upper()
+        lines += ["", f"// {name}: " + ", ".join(f"{k} {v}" for k, v in stats(slot).items())]
+        lines += [f"constexpr int {key}_{part} = {int(w[at])};"
+                  for part, at in (("ROWS", H_ROWS), ("INS", H_INS), ("OUTS", H_OUTS))]
+        lines.append(f"static __constant__ int c_prog_{name}[{len(w)}] = {{")
+        lines += ["    " + ", ".join(map(str, w[i : i + 12].tolist())) + ","
+                  for i in range(0, len(w), 12)]
+        lines.append("};")
+    lines += ["", "}  // namespace coop", "}  // namespace lh", ""]
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------------ reference
+
+
+def run_reference(words: np.ndarray, inputs, folds, topf):
+    """Execute an encoded program on CPU tensors: `inputs` the input rows
+    [n_in, W, S] int32; returns the output rows [n_out, W, S]. Every job
+    runs its plain Fp body (fp._mul_body, fp._reduce_light_body); a stage
+    that writes a row it also reads, or writes one row twice, raises."""
+    w = [int(v) for v in words]
+    n_st, n_rows, n_out, n_in = w[H_STAGES], w[H_ROWS], w[H_OUTS], w[H_INS]
+    starts = w[H_STAGE0 : H_STAGE0 + n_st + 1]
+    j_base = H_STAGE0 + n_st + 1
+    arena = torch.zeros((n_rows, W, inputs.shape[-1]), dtype=torch.int32)
+    arena[:n_in] = inputs
+
+    def terms(off, n):
+        return [(t >> 8, ((t & 0xFF) ^ 0x80) - 0x80) for t in w[off : off + n]]
+
+    def value(ts):
+        acc = torch.zeros_like(arena[0], dtype=torch.int64)
+        for row, c in ts:
+            acc += c * arena[row].long()
+        return acc.to(torch.int32)
+
+    for st in range(n_st):
+        reads, writes, results = set(), [], []
+        for j in range(starts[st], starts[st + 1]):
+            w0, out, off = w[j_base + JOB_WORDS * j : j_base + JOB_WORDS * (j + 1)]
+            kind, na, nb = w0 & 0xFF, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF
+            ta, tb = terms(off, na), terms(off + na, nb)
+            reads.update(r for r, _ in ta + tb)
+            writes.append(out)
+            if kind == MUL:
+                v = fp._mul_body(value(ta), value(tb), folds, topf)
+            else:
+                v = fp._reduce_light_body(value(ta), folds, topf)
+            results.append((out, v))
+        if len(set(writes)) != len(writes) or reads & set(writes):
+            raise AssertionError(f"stage {st}: a row written twice or read and written")
+        for out, v in results:
+            arena[out] = v
+    o_base = j_base + JOB_WORDS * starts[-1]
+    return torch.stack([
+        value(terms(*w[o_base + OUT_WORDS * o : o_base + OUT_WORDS * (o + 1)]))
+        for o in range(n_out)
+    ])

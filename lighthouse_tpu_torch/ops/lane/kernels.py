@@ -49,7 +49,7 @@ SOURCES = {
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
 }
-HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh")
+HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh", "coop.cuh")
 
 # component shape of each field's lane element
 FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)
@@ -120,19 +120,35 @@ def nvcc_path() -> str:
     )
 
 
+# the header of the cooperative kernels' programs (ops/lane/coop.py), which
+# build() writes into the build directory for csrc/miller.cu
+PROGRAMS_H = "coop_programs.h"
+
+
+def programs_header() -> str:
+    from . import coop  # traces the plain bodies (no cycle at call time)
+
+    return coop.header()
+
+
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted([*SOURCES.values(), *HEADERS]):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
+    h.update(programs_header().encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
 def build() -> Path:
     """Compile every library not yet built, one nvcc per source, all in
-    parallel; raise with the compiler's output if any fails."""
+    parallel, after writing PROGRAMS_H into the build directory; raise
+    with the compiler's output if any fails."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    hdr = out / f"{PROGRAMS_H}.{os.getpid()}.tmp"
+    hdr.write_text(programs_header())
+    os.replace(hdr, out / PROGRAMS_H)
     nvcc = None
     t0 = time.perf_counter()
     jobs = {}
@@ -142,7 +158,7 @@ def build() -> Path:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out / f"lib{lib}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(out), "-o", str(tmp), str(CSRC / src)]
         jobs[lib] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -165,7 +165,9 @@ def test_package_import_leaves_jax_unloaded():
         "import lighthouse_tpu_torch.crypto.bls as bls, lighthouse_tpu_torch.crypto.bls.backends.cuda\n"
         "import lighthouse_tpu_torch.ops.lane.htc, lighthouse_tpu_torch.ops.lane.chains\n"
         "import lighthouse_tpu_torch.ops.lane.jacobian, lighthouse_tpu_torch.tools.ubench_mul\n"
+        "import lighthouse_tpu_torch.ops.lane.coop as coop\n"
         "assert bls.verify_signature_sets([], backend='cpu') is False\n"
+        "assert all(len(coop.program(slot)) for slot in coop.PROGRAMS)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'lighthouse_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
