@@ -16,9 +16,10 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the nine CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the two cooperative kernels (csrc/coop.cuh), their
-   ptxas line, the dynamic shared memory the library launches them with
-   (held equal to their program's layout) and their program's shape.
+   function; for the four cooperative kernels (csrc/coop.cuh:
+   miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step), their ptxas line,
+   the dynamic shared memory their library launches them with (held equal
+   to their program's layout) and their program's shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
    slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
@@ -52,7 +53,11 @@ non-zero before the last line:
    the same verdict), one commitment profiled for its device share.
 6. bls: jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step against their
    plain bodies on seeded operands (infinity lanes, every digit) at the
-   phase 3 widths, timed at S = 4096; all 17 kernels against theirs on
+   phase 3 widths, timed at S = 4096; the cooperative jac_dbl_f2 and
+   g2_win_step also at S = 1024 and at S = 1 and 2 (every combination of
+   digit, accumulator at infinity and entry at infinity, a hold per lane
+   or pair), in device ms and bound at S = 1, 2 and 1024; all 17 kernels
+   against theirs on
    every operand layout a real bucket-128 verify meets, at S = 1, 2, the
    layout's own width and 2 x 128, each timed at the path's width. Then
    the BLS main path, counters zeroed just before and read just after:
@@ -88,7 +93,8 @@ non-zero before the last line:
    phase 7's; row 23 of the TPU-kernel table is two entries,
    ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
-   kernels' dynamic shared memory); 9. the `ok` JSON line (last).
+   kernels' dynamic shared memory, as each library reports it); 9. the
+   `ok` JSON line (last).
 """
 
 from __future__ import annotations
@@ -166,14 +172,19 @@ PER_MSM = {"jac_add_f1": 90, "sqr": 180, "mul": 540, "canon_reduce": 180, "jac_d
 PER_CHECK = {"miller_dbl_iter": 63, "miller_add_iter": 5, "f12mul": 36, "cyc_sqr": 315,
              "f6mul": 4, "f2mul": 4, "f2sqr": 1, "reduce_light": 1, "mul": 233,
              "sqr": 381, "canon_reduce": 1}
-# slice 5's cooperative kernels (csrc/coop.cuh): also held at the bucket-1024
-# width and read in device ms at the widths their paths run
-REDESIGNED = ("miller_dbl_iter", "cyc_sqr")
+# the cooperative kernels (csrc/coop.cuh; slices 5 and 6), by the library
+# that launches them: also held at the bucket-1024 width and read in device
+# ms at the widths their paths run
+COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
+             "g2_win_step": "chains"}
+REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
+# every (digit, accumulator at infinity, entry at infinity) of a window step
+WIN_COMBOS = [(d, a, e) for d in range(4) for a in (0, 1) for e in (0, 1)]
 # per kernel k_<name>: ptxas registers, static shared memory, stack, spills
 PTXAS: dict = {}
 # per cooperative kernel: the dynamic shared memory (bytes) its blocks launch
-# with, read from the library (lh_miller_launch_smem)
+# with, read from its library (lh_<library>_launch_smem)
 LAUNCH_SMEM: dict = {}
 _PTXAS_FIELDS = {"registers": r"Used (\d+) registers", "smem": r"(\d+) bytes smem",
                  "stack": r"(\d+) bytes stack frame", "spill_stores": r"(\d+) bytes spill stores",
@@ -387,12 +398,11 @@ def phase_build() -> None:
                     for key, pat in _PTXAS_FIELDS.items():
                         if (m := re.search(pat, line)):
                             row[key] = int(m.group(1))
-    # the cooperative kernels' dynamic shared memory, as the library
-    # launches them, against their programs' layout (coop.stats)
-    lib = kernels.libs()["miller"]
-    for name in REDESIGNED:
+    # the cooperative kernels' dynamic shared memory, as their libraries
+    # launch them, against their programs' layout (coop.stats)
+    for name, lib in COOP_LIBS.items():
         st = coop.stats(coop.slot(name))
-        LAUNCH_SMEM[name] = lib.lh_miller_launch_smem(coop.slot(name))
+        LAUNCH_SMEM[name] = getattr(kernels.libs()[lib], f"lh_{lib}_launch_smem")(coop.slot(name))
         if LAUNCH_SMEM[name] != st["smem_bytes"]:
             raise AssertionError(f"{name} launches with {LAUNCH_SMEM[name]} B of shared "
                                  f"memory, its program lays out {st['smem_bytes']} B")
@@ -400,8 +410,12 @@ def phase_build() -> None:
             launch_smem=LAUNCH_SMEM[name], coop=json.dumps(st, separators=(",", ":")))
 
 
-def _inputs(rng, shape, kind):
-    """Seeded lazy operands inside the certified intervals."""
+def _inputs(rng, shape, kind, combos=None):
+    """Seeded lazy operands inside the certified intervals. Points: Z = 0
+    (structural infinity) on patterned lanes; lanes 0.. take `combos`
+    (digit, P1 at infinity, P2 at infinity), by default WIN_COMBOS where
+    S holds them all; P1 is the first point, P2 the second or every table
+    entry."""
     from lighthouse_tpu_torch.crypto.bls.params import P
     from lighthouse_tpu_torch.ops.lane import fp
 
@@ -423,21 +437,30 @@ def _inputs(rng, shape, kind):
         return [t(lazy3())]
     if kind == "canon_reduce":  # eq_zero's operand: a difference of products
         return [t(canon() - canon())]
-    pts = [t(canon()), t(lazy3()), t(canon())]
     lanes = torch.arange(S, device=dev)
-    pts[2][..., lanes % 7 == 3] = 0  # structural infinity (Z = 0) lanes
+    if combos is None:
+        combos = WIN_COMBOS if S >= len(WIN_COMBOS) else []
+    n = len(combos)
+    head = torch.tensor([c[1:] for c in combos], dtype=torch.bool, device=dev).reshape(n, 2)
+
+    def inf(mask, col):  # the pattern's lanes, lanes 0..n-1 the combos'
+        mask[:n] = head[:, col]
+        return mask
+
+    pts = [t(canon()), t(lazy3()), t(canon())]
+    pts[2][..., inf(lanes % 7 == 3, 0)] = 0
     if kind.startswith("jac_dbl"):
         return pts
     other = [t(canon()), t(canon()), t(lazy3())]
-    other[2][..., lanes % 5 == 1] = 0
-    other[2][..., lanes % 7 == 3] = 0  # both infinity on some lanes
+    other[2][..., inf((lanes % 5 == 1) | (lanes % 7 == 3), 1)] = 0  # both on some lanes
     if kind.startswith("jac_add"):
         return pts + other
     # a window step: acc (pts), the table T1, T2, T3, and a digit per lane
     table = [[t(canon()), t(canon()), t(canon())] for _ in range(3)]
-    table[0][2][..., lanes % 11 == 5] = 0
+    for k, entry in enumerate(table):
+        entry[2][..., inf(lanes % 11 == 5 if k == 0 else lanes < 0, 1)] = 0
     dig = t(rng.integers(0, 4, size=(*shape[: -2 - (kind == "g2_win_step")], 1, S)))
-    dig[..., :4] = torch.arange(4, device=dev)  # every digit, also at S=4
+    dig[..., :n] = torch.tensor([c[0] for c in combos], dtype=torch.int32, device=dev)
     return pts + table[0] + table[1] + table[2] + [dig]
 
 
@@ -1041,20 +1064,30 @@ def _scalars(rng, n: int) -> list:
 
 
 def _seeded_bls_holds(rng, out: dict) -> None:
-    """The four new kernels against their plain bodies on seeded operands
-    (infinity lanes, every digit), timed at S=4096."""
+    """Slice 3's four kernels against their plain bodies on seeded operands
+    (infinity lanes, every digit), timed at S=4096; the cooperative two
+    also at S=1024, at S=1 and 2 on every WIN_COMBOS entry, and in device
+    ms and bound at REDESIGNED_S."""
     for name in BLS_SEEDED:
         f2 = name in ("jac_dbl_f2", "jac_add_f2", "g2_win_step")
+        coop = name in REDESIGNED
         max_err = 0
-        for shape in SHAPES:
+        for shape in SHAPES + ([(36, 1024)] if coop else []):
             shape = (*shape[:-2], 2, *shape[-2:]) if f2 else shape
             args = _inputs(rng, shape, name)
             max_err = max(max_err, _hold(name, args, str(shape)))
             if shape[-1] == SHAPES[0][-1]:
-                timing = _time(name, args)
+                timing, main = _time(name, args), args
+        for S in ((1, 2) if coop else ()):
+            for i in range(0, len(WIN_COMBOS), S):
+                args = _inputs(rng, (2, 36, S), name, combos=WIN_COMBOS[i : i + S])
+                max_err = max(max_err, _hold(name, args, f"S={S} {WIN_COMBOS[i : i + S]}"))
+        if coop:
+            timing.update(_widths_ms(name, main))
         out[name] = dict(max_abs_err=max_err, **timing)
         say("bls", kernel=name, equal="yes", tolerance="exact(torch.equal)",
-            shapes="S=4096,2x128,S=4097", operands="seeded(infinity lanes, digits 0-3)",
+            shapes="S=4096,2x128,S=4097" + (",S=1024,S=1,S=2" if coop else ""),
+            operands="seeded(infinity lanes, digits 0-3" + (", every combination)" if coop else ")"),
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
@@ -1465,7 +1498,7 @@ def main() -> int:
             **{key: k[key] for key in ("call_ms", "path_S", "path_call_ms", "bls_path_S",
                                        "bls_path_call_ms", "slice4_path_S",
                                        "slice4_path_call_ms") if key in k},
-            # slice 5: the redesigned kernels' device ms and bound at each
+            # the cooperative kernels' device ms and bound at each
             # path width, and their blocks' dynamic shared memory
             **{key: v for key, v in k.items() if key.startswith(("ms_S", "bound_ms_S"))},
             "ptxas": PTXAS.get(name, {}),

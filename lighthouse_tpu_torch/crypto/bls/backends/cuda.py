@@ -31,7 +31,7 @@ the kernels' plain PyTorch bodies.
 from __future__ import annotations
 
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
@@ -47,10 +47,15 @@ _G1_GEN_NEG_X = fp.to_limbs(params.G1X)
 _G1_GEN_NEG_Y = fp.to_limbs((-params.G1Y) % params.P)
 _M_ABS = -params.X
 
-# seconds per verify, by padded bucket: {"host_pack": [...], "device": [...]}
-# (host_pack: policy checks, aggregation, hashing, packing and the copy to
-# the device; device: verify_core up to the verdict on the host)
-TIMES: dict = defaultdict(lambda: {"host_pack": [], "device": []})
+# seconds per verify, by padded bucket: {"host_pack": ..., "device": ...},
+# each the last TIMES_WINDOW verifies' (host_pack: policy checks,
+# aggregation, hashing, packing and the copy to the device; device:
+# verify_core up to the verdict on the host). A fixed window, so a node's
+# process holds a bounded record however many verifies it makes.
+TIMES_WINDOW = 256
+TIMES: dict = defaultdict(
+    lambda: {"host_pack": deque(maxlen=TIMES_WINDOW), "device": deque(maxlen=TIMES_WINDOW)}
+)
 
 
 def _to_affine_g1(p):

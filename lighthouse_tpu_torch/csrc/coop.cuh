@@ -4,7 +4,8 @@
 //
 // The device half of lighthouse_tpu_torch/ops/lane/coop.py, which traces a
 // kernel's program from its plain body and writes it into the generated
-// header coop_programs.h, a `__constant__` array. A program is a list of jobs in stages: the
+// header coop_programs.h, a `__constant__` array, with the program's slot
+// and warps per element. A program is a list of jobs in stages: the
 // jobs of a stage are independent, the block's warps take them in turn
 // (warp w: jobs w, w + NW, ...), and a block barrier ends the stage. A job
 // reads its operands as lazy sums, integer combinations of rows evaluated
@@ -63,6 +64,11 @@ static inline int copy_tables(const void* folds, const void* topfm) {
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_tables, topfm, 4 * 3 * CONVW, 4 * W * NFOLD);
   return (int)e;
 }
+
+// The blocks of NW warps an SM must hold at once for a launch bound of at
+// most 64 registers a thread (an SM has 65,536): with 4 warps, 8 blocks,
+// so a 1,024-lane bucket takes one wave of the H100's 132 SMs.
+__host__ __device__ constexpr int min_blocks(int nw) { return nw < 32 ? 32 / nw : 1; }
 
 // Shared memory of one block: the tables, NW warp scratches, the rows.
 __host__ __device__ constexpr int smem_ints(int nw, int rows) {
@@ -254,6 +260,24 @@ __device__ __forceinline__ int* setup(int* smem) {
   int* scratch = smem + TABLES;
   for (int i = threadIdx.x; i < NW * SCRATCH; i += NW * 32) scratch[i] = 0;
   return scratch + NW * SCRATCH;
+}
+
+// The block's dynamic shared memory.
+__device__ __forceinline__ int* dyn_smem() {
+  extern __shared__ int lh_smem[];
+  return lh_smem;
+}
+
+// Block -> lane element (k, s) of the K x S grid: one block per element.
+__device__ __forceinline__ void block_elem(int S, long* k, long* s) {
+  *k = (long)blockIdx.x / S;
+  *s = (long)blockIdx.x - *k * S;
+}
+
+// The index of limb i of row r of lane element (k, s) of a [K, C rows of
+// W, S] batch.
+__device__ __forceinline__ long at(int C, int r, int i, long k, long s, int S) {
+  return k * C * W * S + s + (long)(r * W + i) * S;
 }
 
 // Rows [C x W] of lane element (k, s) of a [K, C rows of W, S] batch into

@@ -118,11 +118,15 @@ __global__ void __launch_bounds__(lh::THREADS)
 
 // ------------------------------------------------------------ cooperative
 
-constexpr int DBL_WARPS = 8;  // warps per lane element (ops/lane/coop.py PROGRAMS)
-constexpr int CYC_WARPS = 9;
+// warps per lane element, from ops/lane/coop.py PROGRAMS
+constexpr int DBL_WARPS = lh::coop::MILLER_DBL_ITER_WARPS;
+constexpr int CYC_WARPS = lh::coop::CYC_SQR_WARPS;
 
+using lh::coop::at;
+using lh::coop::block_elem;
 using lh::coop::c_prog_cyc_sqr;
 using lh::coop::c_prog_miller_dbl_iter;
+using lh::coop::dyn_smem;
 
 // the kernels load 20 / 12 input rows and store 18 / 12 output rows
 static_assert(lh::coop::MILLER_DBL_ITER_INS == 20 && lh::coop::MILLER_DBL_ITER_OUTS == 18,
@@ -134,23 +138,6 @@ static_assert(lh::coop::CYC_SQR_INS == 12 && lh::coop::CYC_SQR_OUTS == 12,
 constexpr int DBL_SMEM = 4 * lh::coop::smem_ints(DBL_WARPS, lh::coop::MILLER_DBL_ITER_ROWS);
 constexpr int CYC_SMEM = 4 * lh::coop::smem_ints(CYC_WARPS, lh::coop::CYC_SQR_ROWS);
 static_assert(DBL_SMEM <= 227 * 1024 && CYC_SMEM <= 227 * 1024, "a block's shared memory");
-
-__device__ __forceinline__ int* dyn_smem() {
-  extern __shared__ int lh_smem[];
-  return lh_smem;
-}
-
-// Block -> lane element (k, s) of the K x S grid.
-__device__ __forceinline__ void block_elem(int S, long* k, long* s) {
-  *k = (long)blockIdx.x / S;
-  *s = (long)blockIdx.x - *k * S;
-}
-
-// Limb i of row r of lane element (k, s) of a [K, C rows of W, S] batch.
-__device__ __forceinline__ int& at(int* __restrict__ g, int C, int r, int i, long k,
-                                   long s, int S) {
-  return g[k * C * W * S + s + (long)(r * W + i) * S];
-}
 
 __global__ void __launch_bounds__(DBL_WARPS * 32)
     k_miller_dbl_iter(const int* __restrict__ f_in, const int* __restrict__ xt,
@@ -177,9 +164,9 @@ __global__ void __launch_bounds__(DBL_WARPS * 32)
     const int o = t / W, i = t - o * W;
     const int v = lh::coop::out_limb(c_prog_miller_dbl_iter, smem, NW, o, i);
     if (o < 12) {
-      at(f_out, 12, o, i, k, s, S) = v;
+      f_out[at(12, o, i, k, s, S)] = v;
     } else {
-      at(o < 14 ? x3_out : (o < 16 ? y3_out : z3_out), 2, o % 2, i, k, s, S) = v;
+      (o < 14 ? x3_out : (o < 16 ? y3_out : z3_out))[at(2, o % 2, i, k, s, S)] = v;
     }
   }
 }
@@ -195,7 +182,7 @@ __global__ void __launch_bounds__(CYC_WARPS * 32)
   lh::coop::run<NW>(c_prog_cyc_sqr, smem);
   for (int t = threadIdx.x; t < 12 * W; t += NW * 32) {
     const int o = t / W, i = t - o * W;
-    at(out, 12, o, i, k, s, S) = lh::coop::out_limb(c_prog_cyc_sqr, smem, NW, o, i);
+    out[at(12, o, i, k, s, S)] = lh::coop::out_limb(c_prog_cyc_sqr, smem, NW, o, i);
   }
 }
 
@@ -215,10 +202,12 @@ LH_EXPORT int lh_miller_init(const void* folds, const void* topfm) {
   return e;
 }
 
-// The dynamic shared memory (bytes) a block of program `slot` (0:
-// miller_dbl_iter, 1: cyc_sqr) launches with; -1 for another slot.
+// The dynamic shared memory (bytes) a block of program `slot` (coop.py
+// PROGRAMS: miller_dbl_iter, cyc_sqr) launches with; -1 for another slot.
 LH_EXPORT int lh_miller_launch_smem(int slot) {
-  return slot == 0 ? DBL_SMEM : (slot == 1 ? CYC_SMEM : -1);
+  return slot == lh::coop::MILLER_DBL_ITER_SLOT
+             ? DBL_SMEM
+             : (slot == lh::coop::CYC_SQR_SLOT ? CYC_SMEM : -1);
 }
 
 LH_EXPORT const char* lh_miller_error_string(int e) {

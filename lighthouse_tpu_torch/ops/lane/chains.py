@@ -86,24 +86,45 @@ def f2inv(a):
 # ---------------------------------------------------------------- ladder
 
 
+def _win_pick(dig, T1, T2, T3, f2):
+    """The table entry of each lane's digit (dig [..., 1, S] int32): T3 for
+    3, T2 for 2, T1 for 0 and 1."""
+    d = dig[..., 0, :]
+    nc = 2 if f2 else 1
+    return tuple(J._wh(d == 3, c, J._wh(d == 2, b, a, nc), nc) for a, b, c in zip(T1, T2, T3))
+
+
+def _win_core(folds, topf, Xa, Ya, Za, Xe, Ye, Ze, f2):
+    """The window step's arithmetic on the accumulator and the table entry
+    E: [4]acc by two doublings, then [4]acc + E by add-2007-bl without its
+    selection. Returns the 3 coordinates of [4]acc, then those of the sum."""
+    acc4 = J._dbl_body(folds, topf, Xa, Ya, Za, f2=f2)
+    acc4 = J._dbl_body(folds, topf, *acc4, f2=f2)
+    return (*acc4, *J._add_core(folds, topf, *acc4, Xe, Ye, Ze, f2=f2))
+
+
+def _win_select(dig, acc4, entry, total, f2):
+    """The window step's result: [4]acc where the digit is 0, else the
+    add's structural-infinity selection of ([4]acc, E, the sum)."""
+    nc = 2 if f2 else 1
+    keep = dig[..., 0, :] == 0
+    added = J._add_select(acc4, entry, total, f2=f2)
+    return tuple(J._wh(keep, a, o, nc) for a, o in zip(acc4, added))
+
+
 def _win_step_body(
     folds, topf, Xa, Ya, Za, X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, dig, f2
 ):
-    """acc <- [4]acc + T[digit]: 2 doublings, the 3-way table select, one
+    """acc <- [4]acc + T[digit]: the 3-way table select, 2 doublings, one
     branchless add (on every lane), and the digit-0 pass-through of the
     doubled accumulator. dig [..., 1, S] int32 in 0..3."""
-    x, y, z = J._dbl_body(folds, topf, Xa, Ya, Za, f2=f2)
-    x, y, z = J._dbl_body(folds, topf, x, y, z, f2=f2)
-    d = dig[..., 0, :]
-    nc = (None,) * (2 if f2 else 1) + (slice(None),)
-    pick2 = (d == 2)[(..., *nc)]
-    pick3 = (d == 3)[(..., *nc)]
-    ex = torch.where(pick3, X3, torch.where(pick2, X2, X1))
-    ey = torch.where(pick3, Y3, torch.where(pick2, Y2, Y1))
-    ez = torch.where(pick3, Z3, torch.where(pick2, Z2, Z1))
-    added = J._add_body(folds, topf, x, y, z, ex, ey, ez, f2=f2)
-    keep = (d == 0)[(..., *nc)]
-    return tuple(torch.where(keep, a, o) for a, o in zip((x, y, z), added))
+    entry = _win_pick(dig, (X1, Y1, Z1), (X2, Y2, Z2), (X3, Y3, Z3), f2)
+    out = _win_core(folds, topf, Xa, Ya, Za, *entry, f2=f2)
+    return _win_select(dig, out[:3], entry, out[3:], f2)
+
+
+def _win_core_f2(folds, topf, *args):
+    return _win_core(folds, topf, *args, f2=True)
 
 
 def _win_step_f1_body(folds, topf, *args):

@@ -9,7 +9,8 @@ stage are independent, the block's warps share them out, and a block
 barrier ends each stage.
 
 The programs are traced here from the plain bodies themselves
-(pairing._dbl_iter_body, pairing._cyc_sqr_body): run on symbolic rows,
+(pairing._dbl_iter_body, pairing._cyc_sqr_body, jacobian._dbl_f2_body,
+chains._win_core_f2): run on symbolic rows,
 each of their Fp products and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -19,11 +20,19 @@ does not change the limbs. The Fp products and `reduce_light` keep
 `_SCHED`'s carry passes; the device computes each one as fp._mul_body
 (both entry norms) and fp._reduce_light_body do.
 
+A program holds no select: a `torch.where` or a comparison on a traced
+value raises. A body with a per-element select (the window step's digit,
+the add's structural infinity) is traced without it, and its kernel makes
+the select after the program, in an epilogue: one block is one lane
+element, so the select is uniform over the block and only picks which
+rows the block loads or writes (csrc/chains.cu `k_g2_win_step`).
+
 Each job is scheduled at the earliest stage its operands allow, and its
 result takes the lowest shared-memory row that no later stage reads. The
 encoded program (int32 words) is compiled into the library's constant
-bank: `header` writes it as a generated header that kernels.build hands to
-nvcc. `run_reference` executes an encoded program on CPU tensors with the
+bank: `header` writes them all into one generated header that kernels.build
+hands to nvcc, and checks that they fit the bank beside fp_lane.cuh's
+tables. `run_reference` executes an encoded program on CPU tensors with the
 plain Fp bodies, checking that no stage writes a row that the same stage
 reads: the CPU tests hold it limb for limb against the plain bodies.
 """
@@ -37,7 +46,7 @@ import threading
 import numpy as np
 import torch
 
-from . import fp, pairing
+from . import chains, fp, jacobian, pairing
 
 W = fp.W
 
@@ -48,13 +57,21 @@ H_STAGES, H_JOBS, H_ROWS, H_OUTS, H_INS, H_STAGE0 = 0, 1, 2, 3, 4, 5
 JOB_WORDS = 3          # kind | na << 8 | nb << 16, out row, term offset
 OUT_WORDS = 2          # term offset, term count
 MAX_WORDS = 4096       # per program: a quarter of the 64 KiB constant bank
+BANK_WORDS = 16384     # the 64 KiB constant bank, in int32 words
 MAX_TERMS = 255        # terms of one operand: the job word counts them in 8 bits
 SCRATCH = 164          # a warp's scratch: its padded product operand, a dump row
 NFOLD, CONVW = 41, 73
 TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 
-# program slot -> (name, warps per lane element)
-PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9)}
+# program slot -> (name, warps per lane element). jac_dbl_f2 and
+# g2_win_step run at the 1,024-lane bucket. More warps shorten a block
+# (jac_dbl_f2's stages hold 7, 8, 4, 2, 3, 2, 2 jobs: 9 job rounds on 4
+# warps, 7 on 8; g2_win_step's 23 stages of 2-13 jobs: 42 on 4, 29 on 8),
+# but fewer blocks share an SM at 64 registers a thread (coop.cuh
+# min_blocks): with 4 warps 8, so 1,024 blocks fit the H100's 132 SMs in
+# one wave, and at that width 4 warps time fastest (tools/coop_warps.py).
+PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
+            3: ("g2_win_step", 4)}
 
 
 FP, FP2, FP12 = (), (2,), (2, 3, 2)
@@ -62,7 +79,38 @@ FP, FP2, FP12 = (), (2,), (2, 3, 2)
 
 def _lin(v: torch.Tensor) -> dict:
     """The {row: coefficient} of one traced value (its coefficient vector)."""
+    v = v.as_subclass(torch.Tensor)
     return {int(r): int(v[r]) for r in v.nonzero().flatten().tolist()}
+
+
+_SELECTS = frozenset({torch.where, torch.Tensor.where, torch.masked_select,
+                      torch.Tensor.masked_fill, torch.Tensor.masked_fill_,
+                      torch.Tensor.masked_scatter})
+
+
+class Traced(torch.Tensor):
+    """A traced value's coefficient tensor. Linear operations pass through;
+    a select (`torch.where`, a masked fill) or anything that yields a bool
+    tensor (a comparison, the flag of a select) raises: a program has no
+    per-element select."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", repr(func))
+        if func in _SELECTS:
+            raise ValueError(_select_error(name))
+        out = super().__torch_function__(func, types, args, kwargs or {})
+        flat = out if isinstance(out, (tuple, list)) else (out,)
+        if any(isinstance(o, torch.Tensor) and o.dtype == torch.bool for o in flat):
+            raise ValueError(_select_error(name))
+        return out
+
+
+def _select_error(name: str) -> str:
+    return (f"`{name}` on a traced value: a per-element select (torch.where, a "
+            "comparison such as the structural-infinity or digit test) has no job "
+            "in a cooperative program; trace the arithmetic without it and make "
+            "the select block-uniform in the kernel's epilogue")
 
 
 class Tracer:
@@ -92,7 +140,7 @@ class Tracer:
         out = torch.zeros((n, 1, self.N), dtype=torch.int64)
         out[torch.arange(n), 0, self.n + torch.arange(n)] = 1
         self.n += n
-        return out.reshape(*lead, 1, self.N)
+        return out.reshape(*lead, 1, self.N).as_subclass(Traced)
 
     def record(self, kind, *ops):
         ops = torch.broadcast_tensors(*ops)
@@ -222,6 +270,10 @@ def program(slot: int) -> np.ndarray:
         "miller_dbl_iter": (pairing._dbl_iter_body, (FP12, FP2, FP2, FP2, FP, FP)),
         # f -> f^2
         "cyc_sqr": (pairing._cyc_sqr_body, (FP12,)),
+        # X, Y, Z -> X3, Y3, Z3
+        "jac_dbl_f2": (jacobian._dbl_f2_body, (FP2,) * 3),
+        # acc, E (a point each) -> [4]acc, [4]acc + E (no selection)
+        "g2_win_step": (chains._win_core_f2, (FP2,) * 6),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 
@@ -249,14 +301,19 @@ def stats(slot: int) -> dict:
 
 
 def header() -> str:
-    """The generated header csrc/miller.cu includes (kernels.build writes
-    it into the build directory): per program, its rows, inputs and
-    outputs as constexprs and its words as a `__constant__` array."""
+    """The generated header the cooperative kernels include (kernels.build
+    writes it into the build directory): per program, its slot, warps per
+    lane element, rows, inputs and outputs as constexprs and its words as
+    a `__constant__` array."""
+    words = sum(len(program(slot)) for slot in PROGRAMS)
+    if words + TABLES > BANK_WORDS:  # fp_lane.cuh's c_folds, c_topfm beside them
+        raise ValueError(f"programs of {words} words overflow the constant bank")
     lines = ["// Generated from lighthouse_tpu_torch/ops/lane/coop.py; do not edit.",
              "#pragma once", "", "namespace lh {", "namespace coop {"]
-    for slot, (name, _) in sorted(PROGRAMS.items()):
+    for slot, (name, nw) in sorted(PROGRAMS.items()):
         w, key = program(slot), name.upper()
         lines += ["", f"// {name}: " + ", ".join(f"{k} {v}" for k, v in stats(slot).items())]
+        lines += [f"constexpr int {key}_SLOT = {slot};", f"constexpr int {key}_WARPS = {nw};"]
         lines += [f"constexpr int {key}_{part} = {int(w[at])};"
                   for part, at in (("ROWS", H_ROWS), ("INS", H_INS), ("OUTS", H_OUTS))]
         lines.append(f"static __constant__ int c_prog_{name}[{len(w)}] = {{")

@@ -79,7 +79,8 @@ def _dbl_body(folds, topf, X, Y, Z, f2: bool = False):
     return X3, Y3, Z3
 
 
-def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+def _add_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    """add-2007-bl without the infinity selection: the sum's (X3, Y3, Z3)."""
     S, M, RL = _field(folds, topf, f2)
     Z1Z1 = S(Z1)
     Z2Z2 = S(Z2)
@@ -95,14 +96,24 @@ def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
     X3 = RL(S(r) - J - 2 * V)
     Y3 = RL(M(r, V - X3) - 2 * M(S1, J))
     Z3 = RL(M(RL(S(Z1 + Z2) - Z1Z1 - Z2Z2), H))
-    # structural-infinity selection, inside the kernel
+    return X3, Y3, Z3
+
+
+def _add_select(p1, p2, total, f2: bool = False):
+    """The structural-infinity selection of the add: P2 where P1 is at
+    infinity, else P1 where P2 is, else the sum (three points)."""
     nc = 2 if f2 else 1
-    p1_inf = _is_zero(Z1, nc)
-    p2_inf = _is_zero(Z2, nc)
+    p1_inf = _is_zero(p1[2], nc)
+    p2_inf = _is_zero(p2[2], nc)
     return tuple(
-        _wh(p1_inf, b, _wh(p2_inf, a, o, nc), nc)
-        for a, b, o in ((X1, X2, X3), (Y1, Y2, Y3), (Z1, Z2, Z3))
+        _wh(p1_inf, b, _wh(p2_inf, a, o, nc), nc) for a, b, o in zip(p1, p2, total)
     )
+
+
+def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    total = _add_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2=f2)
+    # structural-infinity selection, inside the kernel
+    return _add_select((X1, Y1, Z1), (X2, Y2, Z2), total, f2=f2)
 
 
 def _ladder_step_body(folds, topf, X1, Y1, Z1, Xa, Ya, Za, bit, f2: bool = False):

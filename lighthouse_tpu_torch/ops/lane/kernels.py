@@ -121,7 +121,8 @@ def nvcc_path() -> str:
 
 
 # the header of the cooperative kernels' programs (ops/lane/coop.py), which
-# build() writes into the build directory for csrc/miller.cu
+# build() writes into the build directory for csrc/miller.cu, jac_dbl.cu and
+# chains.cu
 PROGRAMS_H = "coop_programs.h"
 
 
@@ -222,19 +223,24 @@ def libs() -> dict:
             from . import fp  # the constant tables (no cycle at call time)
 
             out = build()
-            loaded = {
-                lib: load(lib, fp.FOLDS_NP, fp.TOPFM_NP, out)
+            _LIBS = {
+                lib: bind(lib, load(lib, fp.FOLDS_NP, fp.TOPFM_NP, out))
                 for lib in sorted({lib for lib, _, _ in ENTRIES.values()})
             }
-            for sym, (lib, ins, outs) in ENTRIES.items():
-                fn = getattr(loaded[lib], sym)
-                fn.argtypes = (
-                    [ctypes.c_void_p] * (len(ins) + len(outs))
-                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                )
-                fn.restype = ctypes.c_int
-            _LIBS = loaded
     return _LIBS
+
+
+def bind(lib: str, so):
+    """Library `lib` loaded as `so`, with the C types of its ENTRIES set."""
+    for sym, (name, ins, outs) in ENTRIES.items():
+        if name == lib:
+            fn = getattr(so, sym)
+            fn.argtypes = (
+                [ctypes.c_void_p] * (len(ins) + len(outs))
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+    return so
 
 
 def _elem(kind) -> tuple:
@@ -268,10 +274,11 @@ def _prepare(arrays, fields):
     return arrays, lead, S
 
 
-def launch(symbol: str, arrays) -> list:
-    """Launch C entry `symbol` on `arrays` on the current stream; outputs
-    are fresh [*lead, *comp, W, S] int32 tensors, each with its own field's
-    comp. Raises on any launch error."""
+def launch(symbol: str, arrays, lib=None) -> list:
+    """Launch C entry `symbol` on `arrays` on the current stream, from the
+    library `lib` (a `bind`-ed handle; default: libs()'); outputs are fresh
+    [*lead, *comp, W, S] int32 tensors, each with its own field's comp.
+    Raises on any launch error."""
     lib_name, ins, outs_f = ENTRIES[symbol]
     if len(arrays) != len(ins):
         raise ValueError(f"{symbol}: takes {len(ins)} operands, got {len(arrays)}")
@@ -283,7 +290,7 @@ def launch(symbol: str, arrays) -> list:
         torch.empty((*lead, *comp, W, S), dtype=torch.int32, device=arrays[0].device)
         for comp in outs_f
     ]
-    lib = libs()[lib_name]
+    lib = libs()[lib_name] if lib is None else lib
     dev = arrays[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

@@ -1,0 +1,136 @@
+"""Device time of a cooperative kernel at several warps per lane element.
+
+A cooperative kernel (csrc/coop.cuh) takes its warps per lane element from
+ops/lane/coop.py PROGRAMS through the generated header. This tool builds
+the libraries once per warp count asked for (PROGRAMS' count replaced
+while the header is written, each build in its own directory),
+holds every variant's outputs torch.equal to the plain body on the same
+seeded operands, then times the variants in turns (a b b a ..., the
+profiler's device time of REPS launches each) and prints one JSON line per
+variant with its rounds of jobs, its shared memory and the card.
+
+Run on a machine with a CUDA card:
+
+    python -m lighthouse_tpu_torch.tools.coop_warps g2_win_step --S 1024 --warps 4 8
+
+Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from ..ops.lane import chains, coop, fp, jacobian as J, kernels, pairing
+
+REPS = 50
+
+
+def _ops():
+    return {"miller_dbl_iter": pairing._dbl_iter, "cyc_sqr": pairing.cyclotomic_sqr,
+            "jac_dbl_f2": J._dbl_f2, "g2_win_step": chains._win_step["fp2"]}
+
+
+@contextlib.contextmanager
+def warps(name: str, nw: int):
+    """coop.PROGRAMS with `nw` warps per lane element for kernel `name`."""
+    slot = coop.slot(name)
+    old = coop.PROGRAMS[slot]
+    coop.PROGRAMS[slot] = (old[0], nw)
+    try:
+        yield
+    finally:
+        coop.PROGRAMS[slot] = old
+
+
+def operands(name: str, S: int, seed: int = 6) -> list:
+    """Seeded operands of kernel `name` on S lanes: standard limbs, one
+    int32 digit in 0..3 per lane for a ROW operand."""
+    rng = np.random.default_rng(seed)
+    _, ins, _ = kernels.ENTRIES[_ops()[name].symbol]
+    out = []
+    for kind in ins:
+        if kind == kernels.ROW:
+            a = rng.integers(0, 4, (1, S), dtype=np.int32)
+        else:
+            a = rng.integers(0, 1 << fp.B, (*kind, fp.W, S), dtype=np.int32)
+        out.append(torch.from_numpy(a).cuda())
+    return out
+
+
+def _device_ms(name: str, fn) -> float:
+    """One launch's device time: the profiler's over REPS launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if re.search(rf"\bk_{name}\b", e.key)]
+    dev = sum(getattr(e, "self_device_time_total", 0) for e in hits)
+    if dev <= 0:
+        raise RuntimeError(f"the profiler holds no device time for k_{name}")
+    return dev / sum(e.count for e in hits) / 1e3
+
+
+def run(name: str, S: int, counts, out=print) -> list:
+    op = _ops()[name]
+    lib = kernels.ENTRIES[op.symbol][0]
+    args = operands(name, S)
+    want = op.plain(*args)
+    variants = {}
+    for nw in counts:
+        with warps(name, nw):
+            so = kernels.bind(lib, kernels.load(lib, fp.FOLDS_NP, fp.TOPFM_NP, kernels.build()))
+            st = coop.stats(coop.slot(name))
+            smem = getattr(so, f"lh_{lib}_launch_smem")(coop.slot(name))
+        got = kernels.launch(op.symbol, args, lib=so)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+            raise AssertionError(f"{name} with {nw} warps != its plain body")
+        if smem != st["smem_bytes"]:
+            raise AssertionError(f"{name} with {nw} warps launches {smem} B, lays out "
+                                 f"{st['smem_bytes']} B")
+        variants[nw] = dict(so=so, stats=st, ms=[])
+    order = list(counts)
+    for turn in range(4):  # a b b a a b b a
+        for nw in (order if turn % 2 == 0 else order[::-1]):
+            v = variants[nw]
+            v["ms"].append(_device_ms(name, lambda: kernels.launch(op.symbol, args, lib=v["so"])))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    rows = []
+    for nw, v in variants.items():
+        st = v["stats"]
+        rows.append(dict(kernel=name, warps=nw, S=S, device_ms=float(np.median(v["ms"])),
+                         device_ms_turns=v["ms"], rounds=st["rounds"],
+                         smem_bytes=st["smem_bytes"], equal_to_plain_body=True, card=card))
+        out(json.dumps(rows[-1]))
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("name", choices=sorted(_ops()))
+    ap.add_argument("--S", type=int, default=1024, help="lanes (default 1024)")
+    ap.add_argument("--warps", type=int, nargs="+", required=True)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("coop_warps: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    run(a.name, a.S, a.warps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,7 @@
 Fast tier: host packing limb-equal to the reference's `prepare_batch`, the
 policy rejections, one valid 2-set verdict through `local_phase` +
 `finish_phase` on the packed batch cut to its 2 real lanes (against the
-`cpu` backend), the launches per verify at buckets 128 and 1024 equal to
+`cpu` backend), the bounded record of verify times, the launches per verify at buckets 128 and 1024 equal to
 the reference's dispatch census op by op (with shape-only stand-ins for
 the kernels, as the reference's census runs).
 `crypto_heavy`: `local_phase` limb-equal to the reference's at 4 lanes, the
@@ -139,6 +139,24 @@ def test_two_sets_verdict_equals_cpu():
     assert all(c.shape == (2, fp.W, 1) for c in s_local)
     assert bool(CB.finish_phase(f_local, s_local, sub_ok)) is True
     assert CPU.verify_signature_sets(sets, rs) is True
+
+
+def test_times_keep_a_fixed_window(monkeypatch):
+    """The per-bucket record of host-pack and device seconds holds the
+    last TIMES_WINDOW verifies however many a process makes: two verifies
+    through the plain bodies at a 1-lane bucket, the window cut to one."""
+    monkeypatch.setattr(CB, "TIMES_WINDOW", 1)
+    monkeypatch.setattr(CB, "TIMES", type(CB.TIMES)(CB.TIMES.default_factory))
+    monkeypatch.setattr(params, "lane_bucket", lambda n: 1)
+    sets = make_sets(1)
+    seen = []
+    for r in SCALARS[:2]:
+        assert CB.verify_signature_sets(sets, [r], device="cpu") is True
+        seen.append(CB.TIMES[1]["device"][-1])
+    assert list(CB.TIMES) == [1]
+    for series in CB.TIMES[1].values():
+        assert series.maxlen == 1 and len(series) == 1
+    assert list(CB.TIMES[1]["device"]) == seen[1:]
 
 
 # ------------------------------------------------ launches per verify

@@ -1,13 +1,17 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
-`miller_dbl_iter` and `cyc_sqr` run on the card as programs of warp jobs
-(csrc/coop.cuh), traced from their plain bodies. Here each encoded program
-is executed on CPU tensors job by job with the plain Fp bodies, stage by
-stage with its row reuse, and held limb for limb against the plain body it
-was traced from; the generated header that compiles the programs in, and
-the word layout and the warps per element that the CUDA sources mirror,
-are pinned to the Python side. The kernels themselves are held on the card
-by chip_smoke.py.
+`miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2` and `g2_win_step` run on the
+card as programs of warp jobs (csrc/coop.cuh), traced from their plain
+bodies. Here each encoded program is executed on CPU tensors job by job
+with the plain Fp bodies, stage by stage with its row reuse, and held limb
+for limb against the plain body it was traced from; `g2_win_step`'s
+program (the window step's arithmetic without its selects) with its
+block-uniform epilogue against the whole plain body, on every digit and
+infinity on either side. The tracer refuses a select; the generated header
+that compiles the programs in, the word layout, and the slots and warps per
+element that the CUDA sources take from it, are pinned to the Python side,
+as is tools/coop_warps.py's override of a warp count. The kernels
+themselves are held on the card by chip_smoke.py.
 """
 
 import re
@@ -17,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from lighthouse_tpu_torch.ops.lane import coop, fp, pairing
+from lighthouse_tpu_torch.ops.lane import chains, coop, fp, jacobian as J, kernels, pairing
+from lighthouse_tpu_torch.tools import coop_warps
 
 CSRC = Path(coop.__file__).resolve().parents[2] / "csrc"
 F2, F12 = (2,), (2, 3, 2)
@@ -27,7 +32,13 @@ BODIES = {
     "miller_dbl_iter": (pairing._dbl_iter_body, [F12, F2, F2, F2, (), ()],
                         [3, 1, 1, 2, 1, 1], 106),
     "cyc_sqr": (pairing._cyc_sqr_body, [F12], [3], 18),
+    "jac_dbl_f2": (J._dbl_f2_body, [F2, F2, F2], [1, 2, 1], 16),
+    # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
+    "g2_win_step": (chains._win_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 1], 75),
 }
+# the kernels' sources, by the program each launches
+SOURCES = {"miller_dbl_iter": "miller.cu", "cyc_sqr": "miller.cu",
+           "jac_dbl_f2": "jac_dbl.cu", "g2_win_step": "chains.cu"}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -42,6 +53,12 @@ def rows(t, lead):
     """[*lead, *comp, W, S] -> rows [comp rows, W, K * S] (stack on lanes)."""
     t = t.reshape(int(np.prod(lead, dtype=np.int64)), -1, fp.W, t.shape[-1])
     return t.permute(1, 2, 0, 3).reshape(t.shape[1], fp.W, -1)
+
+
+def unrows(r, lead, comp, S):
+    """The inverse of `rows`: [comp rows, W, K * S] -> [*lead, *comp, W, S]."""
+    r = r.reshape(r.shape[0], fp.W, -1, S).permute(2, 0, 1, 3)
+    return r.reshape(*lead, *comp, fp.W, S)
 
 
 @pytest.mark.parametrize("name", sorted(BODIES))
@@ -59,12 +76,65 @@ def test_program_equals_plain_body(name):
     assert torch.equal(got, torch.cat([rows(w, lead) for w in want]))
 
 
+def test_win_step_program_with_epilogue_equals_plain_body():
+    """g2_win_step as its kernel computes it: the digit picks E (`_win_pick`),
+    the program maps (acc, E) to ([4]acc, [4]acc + E), and the epilogue
+    selects per lane element (`_win_select`). Every (digit, accumulator at
+    infinity, entry at infinity) once, on 2 x 8 lane elements."""
+    rng = np.random.default_rng(2007)
+    lead, S = (2,), 8
+    acc = [lazy(rng, lead, F2, S, t) for t in (1, 2, 1)]
+    table = [[lazy(rng, lead, F2, S, 1) for _ in range(3)] for _ in range(3)]
+    dig = torch.zeros((*lead, 1, S), dtype=torch.int32)
+    for e, (d, acc_inf, entry_inf) in enumerate(
+            (d, a, b) for d in range(4) for a in (0, 1) for b in (0, 1)):
+        k, s = divmod(e, S)
+        dig[k, 0, s] = d
+        if acc_inf:
+            acc[2][k, ..., s] = 0
+        if entry_inf:
+            for t in table:
+                t[2][k, ..., s] = 0
+    c = fp.consts("cpu")
+    want = chains._win_step_f2_body(c["folds"], c["topf"], *acc, *table[0], *table[1],
+                                    *table[2], dig)
+    entry = chains._win_pick(dig, *table, True)
+    out = coop.run_reference(coop.program(coop.slot("g2_win_step")),
+                             torch.cat([rows(a, lead) for a in (*acc, *entry)]),
+                             c["folds"], c["topf"])
+    out = [unrows(out[2 * i : 2 * i + 2], lead, F2, S) for i in range(6)]
+    got = chains._win_select(dig, out[:3], entry, out[3:], True)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("body", ["add_f2", "where"])
+def test_tracer_refuses_a_select(body):
+    """The add's structural-infinity test (a comparison) and a torch.where
+    on a traced value raise, naming the select."""
+    fn, fields = {
+        "add_f2": (J._add_f2_body, (coop.FP2,) * 6),
+        "where": (lambda folds, topf, a, b: torch.where(torch.tensor(True), a, b),
+                  (coop.FP, coop.FP)),
+    }[body]
+    with pytest.raises(ValueError, match="per-element select"):
+        coop.trace(fn, fields)
+
+
 @pytest.mark.parametrize("name", sorted(BODIES))
 def test_program_shape(name):
     st = coop.stats(coop.slot(name))
     assert st["products"] == BODIES[name][3]
     assert st["words"] <= coop.MAX_WORDS
     assert st["smem_bytes"] <= 232_448  # a block's shared memory on Hopper
+
+
+def test_programs_fit_the_constant_bank():
+    """Every library that includes the generated header holds all programs
+    in its constant bank, beside fp_lane.cuh's FOLDS and TOPFM."""
+    words = sum(coop.stats(slot)["words"] for slot in coop.PROGRAMS)
+    assert words + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
+    assert "c_prog_g2_win_step" in coop.header()
 
 
 def _constexprs(text):
@@ -77,12 +147,21 @@ def test_header_mirrors_python():
                 "H_STAGE0", "JOB_WORDS", "OUT_WORDS", "SCRATCH"):
         assert hdr[key] == getattr(coop, key), key
     assert _constexprs((CSRC / "fp_lane.cuh").read_text())["NFOLD"] == coop.NFOLD
-    miller = _constexprs((CSRC / "miller.cu").read_text())
-    assert miller["DBL_WARPS"] == coop.PROGRAMS[coop.slot("miller_dbl_iter")][1]
-    assert miller["CYC_WARPS"] == coop.PROGRAMS[coop.slot("cyc_sqr")][1]
+    # each kernel takes its slot and warps per element from the generated
+    # header, which writes PROGRAMS', and hard-codes no warp count
+    gen = _constexprs(coop.header())
+    assert sorted(SOURCES) == sorted(n for n, _ in coop.PROGRAMS.values())
+    for slot, (name, nw) in coop.PROGRAMS.items():
+        key = name.upper()
+        assert (gen[f"{key}_SLOT"], gen[f"{key}_WARPS"]) == (slot, nw)
+        src = (CSRC / SOURCES[name]).read_text()
+        assert f"lh::coop::{key}_WARPS" in src and f"lh::coop::{key}_SLOT" in src
+        assert not re.search(r"constexpr int \w*WARPS = \d", src)
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
-    # Y3, Z3; f -> f), as miller.cu's static_asserts check them
-    for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("cyc_sqr", 12, 12)):
+    # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; acc, E -> [4]acc, [4]acc + E),
+    # as the sources' static_asserts check them
+    for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("cyc_sqr", 12, 12),
+                              ("jac_dbl_f2", 6, 6), ("g2_win_step", 12, 12)):
         w = coop.program(coop.slot(name))
         assert (w[coop.H_INS], w[coop.H_OUTS]) == (n_in, n_out)
 
@@ -108,3 +187,16 @@ def test_tracing_leaves_other_callers_the_plain_bodies():
     assert (fp._mul_body, fp._reduce_light_body) == (mul_body, rl_body)
     assert torch.equal(got[0], mul_body(a, a, c["folds"], c["topf"]))
     assert torch.equal(got[1], rl_body(a, c["folds"], c["topf"]))
+
+
+def test_warps_override_builds_apart_and_restores():
+    """tools/coop_warps.py's variants: another warp count writes another
+    header, so its library builds in a directory of its own; the count
+    comes back after."""
+    slot = coop.slot("g2_win_step")
+    default, before = coop.PROGRAMS[slot], kernels.build_dir()
+    with coop_warps.warps("g2_win_step", 8):
+        assert coop.stats(slot)["warps"] == 8
+        assert "constexpr int G2_WIN_STEP_WARPS = 8;" in coop.header()
+        assert kernels.build_dir() != before
+    assert coop.PROGRAMS[slot] == default and kernels.build_dir() == before

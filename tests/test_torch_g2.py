@@ -3,8 +3,10 @@
 The plain bodies of the `jac_dbl_f2`, `jac_add_f2`, `g1_win_step` and
 `g2_win_step` kernels (lighthouse_tpu_torch/ops/lane/jacobian.py, chains.py)
 are held against the host group law at canonical values on a few lanes,
-infinity lanes and every window digit included, and, `crypto_heavy`, limb
-for limb against the JAX reference's bodies, jitted. The glue around them
+infinity lanes and every window digit included; `jac_dbl_f2`, `jac_add_f2`
+and `g2_win_step` limb for limb against the JAX reference's bodies run
+eagerly on 2 x 8 lanes (every digit with infinity on either side); and,
+`crypto_heavy`, all four against the reference's bodies, jitted. The glue around them
 (`scalar_mul_static`, `psi`, `jac_eq`, the exact add and `lane_sum` over
 Fp2, the windowed inversions and `scalar_mul_w2`) is held against the host
 oracle. Tolerance everywhere: exact limbs or equal canonical values.
@@ -160,6 +162,60 @@ def test_scalar_mul_w2_equals_host(nc):
     bits = torch.from_numpy(J.scalars_to_bits(scalars, 64))
     got = unpack(nc, chains.scalar_mul_w2(J.FP1 if nc == 1 else J.FP2, pack(nc, base), bits))
     assert got == [mul(q, k) for q, k in zip(base, scalars)]
+
+
+# ------------------------------------------------ limb for limb, eager
+
+
+LEAD, LANES = (2,), 8
+# every (digit, accumulator at infinity, entry at infinity) once
+COMBOS = [(d, a, e) for d in range(4) for a in (0, 1) for e in (0, 1)]
+
+
+def _eager_args(rng, name):
+    """Operands on 2 x 8 lane elements, lane e of COMBOS[e]: the
+    accumulator (P1) at infinity or not, the entry (P2: every table entry,
+    the addend) at infinity or not, the window digit. Standard limbs, a
+    lazy 2-unit Y1."""
+    shape = (*LEAD, 2, fp.W, LANES)
+
+    def canon():
+        return rng.integers(0, 1 << fp.B, shape, dtype=np.int32)
+
+    p1 = [canon(), canon() - canon(), canon()]
+    n_other = {"jac_dbl_f2": 0, "jac_add_f2": 1, "g2_win_step": 3}[name]
+    others = [[canon() for _ in range(3)] for _ in range(n_other)]
+    dig = np.zeros((*LEAD, 1, LANES), np.int32)
+    for e, (d, p1_inf, p2_inf) in enumerate(COMBOS):
+        k, s = divmod(e, LANES)
+        dig[k, 0, s] = d
+        if p1_inf:
+            p1[2][k, ..., s] = 0
+        for pt in others:
+            if p2_inf:
+                pt[2][k, ..., s] = 0
+    args = p1 + [c for pt in others for c in pt]
+    return args + [dig] if name == "g2_win_step" else args
+
+
+@pytest.mark.parametrize("name", ["jac_dbl_f2", "jac_add_f2", "g2_win_step"])
+def test_bodies_equal_reference_eager(name):
+    """The plain bodies the cooperative programs are traced from (and the
+    add, split into `_add_core` and `_add_select`) against the reference's
+    bodies run eagerly, as its own CPU tests run them, on `_eager_args`:
+    infinity on either side and, for the window step, every digit."""
+    rng = np.random.default_rng(zlib.crc32(b"eager-" + name.encode()))
+    port_op, ref_fn = {
+        "jac_dbl_f2": (J._dbl_f2, ref_jac._dbl_f2_body),
+        "jac_add_f2": (J._add_f2, ref_jac._add_f2_body),
+        "g2_win_step": (chains._win_step["fp2"], ref_chains._win_step_f2_body),
+    }[name]
+    args = _eager_args(rng, name)
+    got = port_op(*(torch.from_numpy(a) for a in args))
+    want = ref_fn(ref_fp._FOLDS, ref_fp._TOPFM, *map(jnp.asarray, args))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w))
 
 
 # ------------------------------------------------ limb for limb, jitted
