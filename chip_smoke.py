@@ -14,29 +14,34 @@ needs one card. Phases, each with its seconds; any failure raises and exits
 non-zero before the last line:
 
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
-2. build: the nine CUDA libraries from csrc/ (one nvcc each, in
+2. build: the ten CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the four cooperative kernels (csrc/coop.cuh:
-   miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step), their ptxas line,
-   the dynamic shared memory their library launches them with (held equal
-   to their program's layout) and their program's shape.
+   function; for the seven cooperative kernels (csrc/coop.cuh:
+   miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step, f12mul and the
+   Fermat inversions inv_w4, inv_bin), their ptxas line, the dynamic shared
+   memory their library launches them with (held equal to their program's
+   layout) and their program's shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
    slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
    ubench_mul and ubench_mul_chain (R = 3) on seeded operands at those
    widths and at S = 1 and 2 (infinity lanes on both sides of a ladder
-   step, its bit row all 0, all 1 and mixed), timed at S = 4096; then every
-   kernel of the pairing check (those three again, and
-   reduce_light, f2mul, f2sqr, f6mul, f12mul, miller_dbl_iter,
-   miller_add_iter, cyc_sqr) against theirs on operands recorded from a
-   real Miller loop, final exponentiation and == 1 test over 4097 seeded
-   pairs: every distinct operand layout each kernel met there (shapes, and
-   broadcast views such as frob2's gamma table or the first iteration's
-   expanded 1), each at S = 1, 2, 4097 and at 128 lanes with a leading
-   stack of 2 (the cooperative miller_dbl_iter and cyc_sqr also at
+   step, its bit row all 0, all 1 and mixed), timed at S = 4096; the
+   inversions inv_w4 and inv_bin on seeded 2-unit operands (a zero lane:
+   0 maps to 0) at those widths and at S = 1024, timed at S = 4096 and in
+   device ms at S = 1, 2 and 1024, beside their bound and, at S = 1, the
+   latency floor of their serial stages; then every kernel of the
+   pairing check (mul, canon_reduce, reduce_light, f2mul, f2sqr, f6mul,
+   f12mul, miller_dbl_iter, miller_add_iter, cyc_sqr, inv_bin) against
+   theirs on operands recorded from a real Miller loop, final
+   exponentiation and == 1 test over 4097 seeded pairs: every distinct
+   operand layout each kernel met there (shapes, and broadcast views such
+   as frob2's gamma table or the first iteration's expanded 1), each at
+   S = 1, 2, 4097 and at 128 lanes with a leading stack of 2 (the
+   cooperative miller_dbl_iter, cyc_sqr, f12mul and inv_bin also at
    S = 1024, the BLS bucket-1024 width). All torch.equal. Each timed at
    S = 4096 (profiler device ms, CUDA-event call ms, plain ms, bound) and
-   at the pairing path's own width; the cooperative two also in device
+   at the pairing path's own width; the cooperative ones also in device
    ms and bound at S = 1, 2 and 1024. The ripple glue of
    canonical(); a small MSM against the host group law.
 4. pairing128: a 128-lane Miller loop against the host Miller loop on 4
@@ -68,7 +73,8 @@ non-zero before the last line:
    verified three times, True, and with one signature moved, False. Every
    kernel must have run there, with no plain body on a CUDA tensor, and
    the launches per verify must equal the reference's dispatch census op
-   by op at buckets 128 and 1024. The wall per verify split into host
+   by op at buckets 128 and 1024, each Fermat inversion's chain in one
+   launch (inv_w4, inv_bin). The wall per verify split into host
    packing and device, the sets/s at 1024, and the device share of one
    1024 verify from the profiler.
 7. ladders, slice 4's paths, each run with the counters zeroed just
@@ -93,8 +99,9 @@ non-zero before the last line:
    phase 7's; row 23 of the TPU-kernel table is two entries,
    ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
-   kernels' dynamic shared memory, as each library reports it); 9. the
-   `ok` JSON line (last).
+   kernels' dynamic shared memory, as each library reports it; their device
+   ms and bound at S = 1, 2 and 1024 and the latency floor at S = 1);
+   9. the `ok` JSON line (last).
 """
 
 from __future__ import annotations
@@ -150,35 +157,80 @@ KERNELS = {
     # row 23 of the TPU-kernel table is two kernels, `_kernel` and `_kernel_chain`
     "ubench_mul": (CSRC + "ubench_mul.cu", "tools/ubench_pallas.py:85"),
     "ubench_mul_chain": (CSRC + "ubench_mul.cu", "tools/ubench_pallas.py:93"),
+    # the Fermat inversions, each in one launch: the chains of `mul` and
+    # `sqr` (fp.py:440-441) that chains.inv and fp.inv launched op by op
+    "inv_w4": (CSRC + "inv.cu", "lighthouse_tpu/ops/lane/fp.py:441"),
+    "inv_bin": (CSRC + "inv.cu", "lighthouse_tpu/ops/lane/fp.py:441"),
 }
-# the kernels of the KZG path (slices 1 and 2), of the BLS main path (slices
-# 1-3) and of slice 4's paths (the ladders, the unfused Miller doubling,
-# the microbenchmark)
-KZG_KERNELS = tuple(KERNELS)[:13]
-BLS_KERNELS = tuple(KERNELS)[:17]
-SLICE4_KERNELS = tuple(KERNELS)[17:]
+# the kernels of the KZG path (slices 1, 2 and 7), of the BLS main path
+# (slices 1-3 and 7) and of slice 4's paths (the ladders, the unfused
+# Miller doubling, the microbenchmark)
+_PAIRING = ("reduce_light", "f2mul", "f2sqr", "f6mul", "f12mul", "miller_dbl_iter",
+            "miller_add_iter", "cyc_sqr", "inv_bin")
+KZG_KERNELS = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1", *_PAIRING)
+BLS_KERNELS = (*KZG_KERNELS, "jac_dbl_f2", "jac_add_f2", "g1_win_step", "g2_win_step",
+               "inv_w4")
+SLICE4_KERNELS = ("norm3", "f12sqr", "f12mul_034", "ladder_step_f1", "ladder_step_f2",
+                  "ubench_mul", "ubench_mul_chain")
+assert sorted(BLS_KERNELS + SLICE4_KERNELS) == sorted(KERNELS)
 SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1")
+# the inversions, held on seeded operands at SHAPES and CHAIN_S
+CHAIN_KERNELS = ("inv_w4", "inv_bin")
+CHAIN_S = (1, 2, 1024)
 # every kernel of the pairing check, held on operands recorded from a real one
-RECORDED = ("mul", "sqr", "canon_reduce", "reduce_light", "f2mul", "f2sqr", "f6mul",
-            "f12mul", "miller_dbl_iter", "miller_add_iter", "cyc_sqr")
+RECORDED = ("mul", "canon_reduce", *_PAIRING)
 # launches per msm_g1 at a 4096-lane bucket, read off the code
 PER_MSM = {"jac_add_f1": 90, "sqr": 180, "mul": 540, "canon_reduce": 180, "jac_dbl_f1": 346}
-# launches per 2-lane pairing check (ops/lane/pairing.py, read off the
-# code): 63 doubling and 5 addition iterations; one lane-product f12mul;
-# final_exp's f12inv (4 f6mul, 1 reduce_light, f6inv's 1 f2sqr + 3 f2mul,
-# f2inv's 2 mul + inv's 229 mul and 381 sqr), frob1's f2mul, 2 frob2 mul,
-# 10 f12mul, 5 x cyc_pow_u (63 cyc_sqr + 5 f12mul each); f12_eq_one's one
-# canon_reduce
-PER_CHECK = {"miller_dbl_iter": 63, "miller_add_iter": 5, "f12mul": 36, "cyc_sqr": 315,
-             "f6mul": 4, "f2mul": 4, "f2sqr": 1, "reduce_light": 1, "mul": 233,
-             "sqr": 381, "canon_reduce": 1}
-# the cooperative kernels (csrc/coop.cuh; slices 5 and 6), by the library
-# that launches them: also held at the bucket-1024 width and read in device
-# ms at the widths their paths run
+
+
+def _chain_launches() -> dict:
+    """The launches of `mul` and `sqr` each inversion replaces, read off
+    the chains for p - 2 (ops/lane/chains.py pow_const_w4: the table's sqr
+    and 3 stacked mul calls, then 4 sqr and 1 mul a window; ops/lane/fp.py
+    pow_const: a sqr on every bit, a mul on each set bit)."""
+    from lighthouse_tpu_torch.crypto.bls.params import P
+    from lighthouse_tpu_torch.ops.lane import chains
+
+    e, windows = P - 2, len(chains.window_digits(P - 2))
+    return {"inv_w4": {"sqr": 1 + 4 * windows, "mul": 3 + windows},
+            "inv_bin": {"sqr": e.bit_length(), "mul": bin(e).count("1")}}
+
+
+def _with_chains(per_op: dict, chains: dict) -> dict:
+    """Launches counted op by op, each of `chains` ({name: calls}) folded
+    into one launch of its kernel."""
+    out = dict(per_op)
+    for chain, n in chains.items():
+        for op, per in _chain_launches()[chain].items():
+            out[op] -= n * per
+        out[chain] = out.get(chain, 0) + n
+    return {k: v for k, v in out.items() if v}
+
+
+def check_launches() -> dict:
+    """Launches per 2-lane pairing check (ops/lane/pairing.py, read off the
+    code): 63 doubling and 5 addition iterations; one lane-product f12mul;
+    final_exp's f12inv (4 f6mul, 1 reduce_light, f6inv's 1 f2sqr + 3 f2mul,
+    f2inv's 2 mul + fp.inv's chain), frob1's f2mul, 2 frob2 mul, 10 f12mul,
+    5 x cyc_pow_u (63 cyc_sqr + 5 f12mul each); f12_eq_one's one
+    canon_reduce."""
+    op_by_op = {"miller_dbl_iter": 63, "miller_add_iter": 5, "f12mul": 36, "cyc_sqr": 315,
+                "f6mul": 4, "f2mul": 4, "f2sqr": 1, "reduce_light": 1, "mul": 233,
+                "sqr": 381, "canon_reduce": 1}
+    return _with_chains(op_by_op, {"inv_bin": 1})
+
+
+# the cooperative kernels (csrc/coop.cuh; slices 5-7), by the library that
+# launches them: also held at the bucket-1024 width and read in device ms
+# at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
-             "g2_win_step": "chains"}
+             "g2_win_step": "chains", "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
+# the dependent multiply-adds of one warp product (a column's 36, a fold's
+# 38), at 4 cycles each: a stage of a cooperative program at one lane
+# element takes at least this many cycles of the SM clock
+JOB_CHAIN_CYCLES = (36 + 38) * 4
 # every (digit, accumulator at infinity, entry at infinity) of a window step
 WIN_COMBOS = [(d, a, e) for d in range(4) for a in (0, 1) for e in (0, 1)]
 # per kernel k_<name>: ptxas registers, static shared memory, stack, spills
@@ -194,20 +246,27 @@ _PTXAS_FIELDS = {"registers": r"Used (\d+) registers", "smem": r"(\d+) bytes sme
 PATH_S = {"miller_dbl_iter": 2, "miller_add_iter": 2}
 # slice 3's new kernels, held on seeded operands like SEEDED
 BLS_SEEDED = ("jac_dbl_f2", "jac_add_f2", "g1_win_step", "g2_win_step")
-# launches per BLS verify at buckets 128 and 1024: the reference's dispatch
-# census (lighthouse_tpu.ops.costs.verify_kernel_costs; totals 3,728 and
-# 3,767 in tests/budgets/kernel_costs.json), op by op
+# launches per BLS verify at buckets 128 and 1024 in the reference: its
+# dispatch census (lighthouse_tpu.ops.costs.verify_kernel_costs; totals
+# 3,728 and 3,767 in tests/budgets/kernel_costs.json), op by op
 _PER_VERIFY_COMMON = {
     "sqr": 1539, "mul": 543, "cyc_sqr": 315, "miller_dbl_iter": 126,
     "g1_win_step": 32, "g2_win_step": 32, "reduce_light": 17, "miller_add_iter": 10,
     "f6mul": 4, "jac_dbl_f1": 2, "jac_add_f1": 1,
 }
-PER_VERIFY = {
+REFERENCE_PER_VERIFY = {
     128: {**_PER_VERIFY_COMMON, "f2sqr": 428, "f2mul": 358, "jac_dbl_f2": 208,
           "f12mul": 43, "canon_reduce": 38, "jac_add_f2": 32},
     1024: {**_PER_VERIFY_COMMON, "f2sqr": 434, "f2mul": 376, "jac_dbl_f2": 211,
            "f12mul": 46, "canon_reduce": 44, "jac_add_f2": 35},
 }
+
+
+def verify_launches(bucket: int) -> dict:
+    """The reference's census with each Fermat inversion in one launch:
+    3 chains.inv (_to_affine_g1 and _to_affine_g2 at the bucket's width,
+    finish_phase's _to_affine_g2 at 1 lane) and final_exp's fp.inv."""
+    return _with_chains(REFERENCE_PER_VERIFY[bucket], {"inv_w4": 3, "inv_bin": 1})
 # launches on slice 4's paths: 64-bit G1 and G2 ladders (the G2 one with
 # the static |u| = 0xd201000000010000 on its chain, popcount 6) at bucket
 # 1024; the unfused doubling of a 128-lane Miller loop (63 iterations); the
@@ -266,6 +325,7 @@ def _ops_counts():
     add_f2 = 5 * f2sqr + 11 * f2mul + 8 * rl + 32 * lazy + 6 * W + 4 * W
     f6mul = 6 * f2mul + 6 * rl + 34 * lazy
     f12mul = 3 * f6mul + 32 * lazy
+    chains = _chain_launches()
     f12sqr = 2 * f6mul + 34 * lazy
     m034 = 13 * f2mul + 60 * lazy
     dbl_step = 6 * f2sqr + 5 * f2mul + 4 * mul + 8 * rl + 34 * lazy
@@ -293,6 +353,10 @@ def _ops_counts():
         "ladder_step_f1": add + dbl + 3 * W,
         "ladder_step_f2": add_f2 + dbl_f2 + 3 * W * 2,
         "ubench_mul": ub_entry + ub_round,
+        # the inversions: their chains' squares and products (inv_w4's
+        # table stacks 13 products into 3 calls)
+        "inv_w4": chains["inv_w4"]["sqr"] * sqr + (chains["inv_w4"]["mul"] + 10) * mul,
+        "inv_bin": (chains["inv_bin"]["sqr"] - 1) * sqr + chains["inv_bin"]["mul"] * mul,
         "ubench_entry": ub_entry,
         "ubench_round": ub_round,
     }
@@ -345,6 +409,7 @@ def _op(name: str):
         "norm3": fp.norm3, "f12sqr": tower.f12sqr, "f12mul_034": tower.f12mul_034,
         "ladder_step_f1": J._ladder_step_f1, "ladder_step_f2": J._ladder_step_f2,
         "ubench_mul": U.mul, "ubench_mul_chain": U.mul_chain,
+        "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin,
     }[name]
 
 
@@ -437,6 +502,10 @@ def _inputs(rng, shape, kind, combos=None):
         return [t(lazy3())]
     if kind == "canon_reduce":  # eq_zero's operand: a difference of products
         return [t(canon() - canon())]
+    if kind in CHAIN_KERNELS:  # the norm of an Fp2 (a sum of two products); lane 0 zero
+        a = t(canon() + canon())
+        a[..., 0] = 0
+        return [a]
     lanes = torch.arange(S, device=dev)
     if combos is None:
         combos = WIN_COMBOS if S >= len(WIN_COMBOS) else []
@@ -531,6 +600,24 @@ def _slice4_holds(rng, out: dict) -> None:
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             shapes="S=4096,2x128,S=4097,S=1,S=2", operands="seeded(infinity lanes, bit rows 0/1/mixed)"
             if name.startswith("ladder") else "seeded",
+            **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+
+
+def _chain_holds(rng, out: dict) -> None:
+    """The inversions against their plain bodies on seeded operands at
+    SHAPES and CHAIN_S, timed at S=4096 and in device ms and bound at
+    REDESIGNED_S."""
+    for name in CHAIN_KERNELS:
+        max_err = 0
+        for shape in SHAPES + [(36, S) for S in CHAIN_S]:
+            args = _inputs(rng, shape, name)
+            max_err = max(max_err, _hold(name, args, str(shape)))
+            if shape == SHAPES[0]:
+                timing, main = _time(name, args, plain_reps=2), args
+        timing.update(_widths_ms(name, main))
+        out[name] = dict(max_abs_err=max_err, **timing)
+        say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
+            shapes="S=4096,2x128,S=4097,S=1,S=2,S=1024", operands="seeded(2-unit, lane 0 zero)",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
@@ -700,10 +787,23 @@ def _widths(full, bucket: bool = False) -> dict:
     return cuts
 
 
+def _sm_clock_mhz() -> int:
+    """The card's maximum SM clock (MHz), from nvidia-smi."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+
+
 def _widths_ms(name: str, main) -> dict:
     """A redesigned kernel's device ms (profiler) and bound at each width
-    of REDESIGNED_S, on the recorded operands (its call ms: path_call_ms)."""
-    out = {}
+    of REDESIGNED_S, on the recorded operands (its call ms: path_call_ms),
+    and the latency floor of its program at one lane element: its stages
+    one after another, each at least one product's chain of dependent
+    multiply-adds (JOB_CHAIN_CYCLES) at the maximum SM clock."""
+    from lighthouse_tpu_torch.ops.lane import coop
+
+    stages = coop.stats(coop.slot(name))["stages"]
+    out = {"latency_floor_ms_S1": stages * JOB_CHAIN_CYCLES / (_sm_clock_mhz() * 1e3)}
     for S in REDESIGNED_S:
         args = [a[..., :S].contiguous() for a in main]
         ms, by = _kernel_ms(name, lambda: _op(name)(*args))
@@ -736,6 +836,7 @@ def phase_kernels() -> dict:
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
     _slice4_holds(rng, out)
+    _chain_holds(rng, out)
 
     # the pairing kernels, on operands recorded from a real run
     free0, _ = torch.cuda.mem_get_info()
@@ -759,13 +860,13 @@ def phase_kernels() -> dict:
         # path hands it over (a slice of the record would add a copy per call)
         main = max(sets.values(), key=lambda e: e["calls"])["last"]
         row = out.setdefault(name, {"max_abs_err": 0})
-        if name not in SEEDED:
+        if "ms" not in row:  # not timed on seeded operands
             row.update(_time(name, [a[..., :4096].contiguous() for a in main], plain_reps=3))
         s_path = PATH_S.get(name, 1)
         path_args = [a[..., :s_path].contiguous() for a in main]
         row.update(max_abs_err=max(row["max_abs_err"], max_err), path_S=s_path,
                    path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
-        if name in REDESIGNED:
+        if name in REDESIGNED and "ms_S1" not in row:
             row.update(_widths_ms(name, main))
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             widths="S=1,S=2,S=4097,2x128" + (",S=1024" if name in REDESIGNED else ""),
@@ -974,6 +1075,7 @@ def phase_e2e() -> dict:
     if len(batch_pairs) != 2:
         raise AssertionError(f"the batch check handed {len(batch_pairs)} pairs, expected 2")
     seam = {}
+    per_check_want = check_launches()
     for label in ("device", "host", "device", "host"):
         before = dict(fp.LAUNCHES)
         torch.cuda.synchronize()
@@ -988,8 +1090,9 @@ def phase_e2e() -> dict:
             raise AssertionError(f"{label} pairing seam gave {v} on the verified batch")
         if label == "device":
             per_check = {k: d for k in KERNELS if (d := fp.LAUNCHES[k] - before.get(k, 0))}
-            if per_check != PER_CHECK:
-                raise AssertionError(f"launches per 2-lane pairing check {per_check}, expected {PER_CHECK}")
+            if per_check != per_check_want:
+                raise AssertionError(f"launches per 2-lane pairing check {per_check}, "
+                                     f"expected {per_check_want}")
     say("e2e", pairing_seam_pairs=2, verdicts="device=True,host=True",
         device_pairing_s=",".join(f"{s:.4f}" for s in seam["device"]),
         host_pairing_s=",".join(f"{s:.4f}" for s in seam["host"]),
@@ -1233,9 +1336,9 @@ def phase_bls(card: str) -> tuple:
     if plain_calls:
         raise AssertionError(f"plain bodies ran on CUDA tensors on the BLS path: {plain_calls}")
     for bucket, got in ((128, per_128), (1024, per_1024)):
-        if got != PER_VERIFY[bucket]:
+        if got != verify_launches(bucket):
             raise AssertionError(f"launches per verify at bucket {bucket} {got}, "
-                                 f"expected the census {PER_VERIFY[bucket]}")
+                                 f"expected the census {verify_launches(bucket)}")
         say("bls", bucket=bucket, launches_per_verify=sum(got.values()),
             by_op=json.dumps(got, separators=(",", ":")), census="equal")
     say("bls", launches=json.dumps(launches, separators=(",", ":")))
@@ -1500,7 +1603,8 @@ def main() -> int:
                                        "slice4_path_call_ms") if key in k},
             # the cooperative kernels' device ms and bound at each
             # path width, and their blocks' dynamic shared memory
-            **{key: v for key, v in k.items() if key.startswith(("ms_S", "bound_ms_S"))},
+            **{key: v for key, v in k.items()
+               if key.startswith(("ms_S", "bound_ms_S", "latency_floor_ms"))},
             "ptxas": PTXAS.get(name, {}),
             **({"launch_smem": LAUNCH_SMEM[name]} if name in LAUNCH_SMEM else {}),
         })

@@ -1,6 +1,6 @@
 // Cooperative lane-element kernels: a thread block of NW warps works on one
 // lane element, whose state lives in the block's shared memory as rows of
-// W limbs; each Fp product and each reduce_light is one warp's job.
+// W limbs; each Fp product, square and reduce_light is one warp's job.
 //
 // The device half of lighthouse_tpu_torch/ops/lane/coop.py, which traces a
 // kernel's program from its plain body and writes it into the generated
@@ -26,7 +26,7 @@
 //   per lane, read from the block's copy of FOLDS in shared memory (a row
 //   stride of 41 ints puts the 32 lanes in 32 banks).
 // Every value is the one the one-thread body (fp_lane.cuh `mul_body`,
-// `reduce_light_body`) computes, limb for limb.
+// `sqr_body`, `reduce_light_body`) computes, limb for limb.
 #pragma once
 
 #include "fp_lane.cuh"
@@ -37,6 +37,7 @@ namespace coop {
 // mirrored from ops/lane/coop.py (pinned by tests/test_torch_coop.py)
 constexpr int MUL = 0;
 constexpr int RL = 1;
+constexpr int SQR = 2;
 constexpr int H_STAGES = 0;
 constexpr int H_JOBS = 1;
 constexpr int H_ROWS = 2;
@@ -189,17 +190,25 @@ __device__ __forceinline__ void store_row(int* smem, int out, int dump, int x0, 
   smem[dump + c.l + ((hi - dump - c.l) & opaque(c.m4))] = x1;
 }
 
-// `mul_body<true, true>` by one warp: entry norms, convolution, 73-column
-// carry passes, the folds 73 -> 36 (+ a zero limb 36), 37 -> 36, 36 -> 36.
+// `mul_body<true, true>` (kind MUL) or `sqr` (kind SQR) by one warp: the
+// entry norms (a product's two at mul.entry_a/b, a square's one at
+// sqr.entry, its operand then both factors), convolution, 73-column carry
+// passes, the folds 73 -> 36 (+ a zero limb 36), 37 -> 36, 36 -> 36.
 // The result goes to row index `out` of smem (`dump`: the warp's dump row).
-__device__ __forceinline__ void job_mul(int* smem, const int* arena, const int* t,
+__device__ __forceinline__ void job_mul(int* smem, const int* arena, const int* t, int kind,
                                         int na, int nb, int out, int dump, int* bpad,
                                         const Lane& c) {
   int a0, a1, b0, b1;
   operand(arena, t, na, c, a0, a1);
-  operand(arena, t + na, nb, c, b0, b1);
-  norm36<MUL_ENTRY_A>(a0, a1, c);
-  norm36<MUL_ENTRY_B>(b0, b1, c);
+  if (kind == SQR) {
+    norm36<SQR_ENTRY>(a0, a1, c);
+    b0 = a0;
+    b1 = a1;
+  } else {
+    operand(arena, t + na, nb, c, b0, b1);
+    norm36<MUL_ENTRY_A>(a0, a1, c);
+    norm36<MUL_ENTRY_B>(b0, b1, c);
+  }
   __syncwarp();  // the warp's last product has read its B
   bpad[36 + c.l] = b0;
   bpad[68 + c.l] = b1;  // 0 on lanes 4-31: the pad stays 0
@@ -306,11 +315,12 @@ __device__ __forceinline__ void run(const int* prog, int* smem) {
       const int w0 = job[0];
       const int* t = prog + job[2];
       const int out = rows + job[1] * W;
-      if ((w0 & 0xFF) == MUL) {
-        job_mul(smem, arena, t, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF, out,
-                scratch + BPAD, smem + scratch, c);
-      } else {
+      const int kind = w0 & 0xFF;  // one kind a job: uniform over the warp
+      if (kind == RL) {
         job_rl(smem, arena, t, (w0 >> 8) & 0xFF, out, scratch + BPAD, c);
+      } else {
+        job_mul(smem, arena, t, kind, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF, out,
+                scratch + BPAD, smem + scratch, c);
       }
     }
     __syncthreads();

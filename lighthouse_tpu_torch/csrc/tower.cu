@@ -1,6 +1,5 @@
 // K5-K9: the tower kernels `reduce_light`, `f2mul`, `f2sqr`, `f6mul`,
-// `f12mul`, `f12sqr` and `f12mul_034`, one entry each over the device
-// functions of tower.cuh.
+// `f12mul`, `f12sqr` and `f12mul_034`, one entry each.
 //
 // Replace the reference's Pallas kernels `reduce_light`
 // (lighthouse_tpu/ops/lane/fp.py:442, `_reduce_light_body`) and `f2mul`,
@@ -16,10 +15,22 @@
 // 1,728 + 3 x 288 + 1,728; f2mul and f6mul the same ratio at 3 and 18
 // products. reduce_light (two single-row folds, ~300 operations on 288
 // bytes) is bound by bytes.
-// Design: one thread per lane element; the operands and the Karatsuba
-// stacks live in the thread's local memory, each Fp product runs in the
-// out-of-line `fp_mul` with its limbs in registers. On the final
-// exponentiation's path these run at S = 1: one thread does the work.
+//
+// `f12mul` is cooperative (coop.cuh): a block of F12MUL_WARPS warps per
+// lane element, the element's rows in shared memory, each Fp product or
+// reduce_light one warp's job. Its program, traced by ops/lane/coop.py
+// from `_f12mul_body`, is 3 stages: the 54 products of the three Fp6
+// Karatsuba products side by side, then the f2mul and the f6mul
+// reduce_lights (36, 18), on 90 rows. 36 of its 46 launches a BLS verify
+// run at one lane (the final exponentiation), where one thread a lane
+// element ran 54 products in a row.
+//
+// The others keep one thread per lane element over the device functions
+// of tower.cuh: the operands and the Karatsuba stacks in the thread's
+// local memory, each Fp product in the out-of-line `fp_mul` with its limbs
+// in registers.
+#include "coop.cuh"
+#include "coop_programs.h"
 #include "tower.cuh"
 
 namespace {
@@ -70,16 +81,31 @@ __global__ void __launch_bounds__(lh::THREADS)
   lh::store_rows<6>(out, x, k, s, S);
 }
 
-__global__ void __launch_bounds__(lh::THREADS)
-    k_f12mul(const int* __restrict__ a, const int* __restrict__ b,
-             int* __restrict__ out, int K, int S) {
+// ------------------------------------------------------------ cooperative
+
+constexpr int NW = lh::coop::F12MUL_WARPS;  // from ops/lane/coop.py PROGRAMS
+static_assert(lh::coop::F12MUL_INS == 24 && lh::coop::F12MUL_OUTS == 12, "f12mul: a, b -> a b");
+// the dynamic shared memory each block launches with
+constexpr int F12MUL_SMEM = 4 * lh::coop::smem_ints(NW, lh::coop::F12MUL_ROWS);
+static_assert(F12MUL_SMEM <= 227 * 1024, "a block's shared memory");
+
+__global__ void __launch_bounds__(NW * 32, lh::coop::min_blocks(NW))
+    k_f12mul(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
+             int S) {
   long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int x[lh::F12], y[lh::F12];
-  lh::load_rows<12>(x, a, k, s, S);
-  lh::load_rows<12>(y, b, k, s, S);
-  lh::f12mul(x, x, y);
-  lh::store_rows<12>(out, x, k, s, S);
+  lh::coop::block_elem(S, &k, &s);
+  int* smem = lh::coop::dyn_smem();
+  int* rows = lh::coop::setup<NW>(smem);
+  // the program's input rows: a (12), b (12)
+  lh::coop::load<NW>(rows, a, 12, k, s, S);
+  lh::coop::load<NW>(rows + 12 * W, b, 12, k, s, S);
+  __syncthreads();
+  lh::coop::run<NW>(lh::coop::c_prog_f12mul, smem);
+  for (int t = threadIdx.x; t < 12 * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W;
+    out[lh::coop::at(12, o, i, k, s, S)] =
+        lh::coop::out_limb(lh::coop::c_prog_f12mul, smem, NW, o, i);
+  }
 }
 
 __global__ void __launch_bounds__(lh::THREADS)
@@ -110,7 +136,19 @@ __global__ void __launch_bounds__(lh::THREADS)
 }  // namespace
 
 LH_EXPORT int lh_tower_init(const void* folds, const void* topfm) {
-  return lh::copy_consts(folds, topfm);
+  int e = lh::copy_consts(folds, topfm);
+  if (!e) e = lh::coop::copy_tables(folds, topfm);
+  if (!e) {
+    e = (int)cudaFuncSetAttribute(k_f12mul, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  F12MUL_SMEM);
+  }
+  return e;
+}
+
+// The dynamic shared memory (bytes) a block of program `slot` (coop.py
+// PROGRAMS: f12mul) launches with; -1 for another slot.
+LH_EXPORT int lh_tower_launch_smem(int slot) {
+  return slot == lh::coop::F12MUL_SLOT ? F12MUL_SMEM : -1;
 }
 
 LH_EXPORT const char* lh_tower_error_string(int e) {
@@ -143,7 +181,9 @@ LH_EXPORT int lh_f6mul(const void* a, const void* b, void* out, int K, int S,
 
 LH_EXPORT int lh_f12mul(const void* a, const void* b, void* out, int K, int S,
                         void* stream) {
-  LH_LAUNCH(k_f12mul, (const int*)a, (const int*)b, (int*)out);
+  k_f12mul<<<(unsigned)((long)K * S), NW * 32, F12MUL_SMEM, (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, (int*)out, S);
+  return (int)cudaGetLastError();
 }
 
 LH_EXPORT int lh_f12sqr(const void* a, void* out, int K, int S, void* stream) {

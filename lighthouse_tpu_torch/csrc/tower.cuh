@@ -125,34 +125,6 @@ __device__ __noinline__ void f6mul(int* out, const int* a, const int* b) {
 }
 
 // ---------------------------------------------------------- Fp12
-// `_f12mul_body`: t0 = a0 b0, t1 = a1 b1, t2 = (a0+a1)(b0+b1) (Fp6);
-// c0 = t0 + v t1, c1 = t2 - t0 - t1, where v (x0, x1, x2) = (xi x2, x0, x1).
-// Lazy (<= 3-unit) output. out may alias a or b.
-__device__ __noinline__ void f12mul(int* out, const int* a, const int* b) {
-  int t[3 * F6], x[F6], y[F6];
-  f6mul(t, a, b);
-  f6mul(t + F6, a + F6, b + F6);
-  lin2<F6>(x, 1, a, 1, a + F6);
-  lin2<F6>(y, 1, b, 1, b + F6);
-  f6mul(t + 2 * F6, x, y);
-#pragma unroll 4
-  for (int i = 0; i < W; ++i) {
-#define T(k, m, c) t[(k) * F6 + ((m) * 2 + (c)) * W + i]
-    out[0 * W + i] = T(0, 0, 0) + LH_XI0(T(1, 2, 0), T(1, 2, 1));
-    out[1 * W + i] = T(0, 0, 1) + LH_XI1(T(1, 2, 0), T(1, 2, 1));
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      out[(2 + c) * W + i] = T(0, 1, c) + T(1, 0, c);
-      out[(4 + c) * W + i] = T(0, 2, c) + T(1, 1, c);
-    }
-#pragma unroll
-    for (int r = 0; r < 6; ++r) {
-      out[F6 + r * W + i] = t[2 * F6 + r * W + i] - t[r * W + i] - t[F6 + r * W + i];
-    }
-#undef T
-  }
-}
-
 // `_f12sqr_body`: m = (a0 + a1)(a0 + v a1), n = a0 a1 (Fp6);
 // c0 = m - n - v n, c1 = n + n. Lazy (<= 4-unit) output. out may alias a.
 __device__ __noinline__ void f12sqr(int* out, const int* a) {

@@ -6,7 +6,9 @@ Port of lighthouse_tpu/ops/lane/chains.py:
   chains (a 16-entry power table, then 4 squarings and one table product
   per window). The reference scans the static digits with a dynamic table
   index; here the loop runs in Python and indexes the table by the digit.
-  The calls, and so the limbs, are the reference's.
+  The calls, and so the limbs, are the reference's. `inv` runs the whole
+  chain for p - 2 in one kernel, `inv_w4` (csrc/inv.cu), whose plain
+  body `_inv_w4_body` makes the same calls.
 - `scalar_mul_w2`: the MSB-first 2-bit windowed ladder (G1 or G2) of the
   64-bit random-linear-combination scalars: acc <- [4]acc + T[digit] with
   the table {P, 2P, 3P}, one kernel per window (`g1_win_step` /
@@ -68,9 +70,43 @@ def pow_const_w4(a, exponent: int):
     return acc
 
 
+def _inv_w4_body(folds, topf, a, one=None):
+    """a^(p-2) by `pow_const_w4`'s windowed chain, as one body: the plain
+    version of the `inv_w4` kernel, whose cooperative program
+    (ops/lane/coop.py) is traced from it. It calls `fp._mul_body` and
+    `fp._sqr_fn` in the order `pow_const_w4(a, P - 2)` calls the `mul`
+    and `sqr` kernels (the table's square and its 3 stacked products,
+    then 4 squares and a table product a window), so the limbs are
+    `pow_const_w4`'s. `one`: table[0], the 1 the chain starts from (a
+    row of the program; the kernel writes it)."""
+    one = fp.one_like(a) if one is None else one
+    a1 = fp._norm(a, topf, "chains.pow_table.entry")
+    a2 = fp._sqr_fn(folds, topf, a1)
+    p34 = fp._mul_body(torch.stack([a2, a2]), torch.stack([a1, a2]), folds, topf)
+    a3, a4 = p34[0], p34[1]
+    p58 = fp._mul_body(torch.stack([a4, a4, a4, a4]), torch.stack([a1, a2, a3, a4]),
+                       folds, topf)
+    a5, a6, a7, a8 = (p58[k] for k in range(4))
+    p915 = fp._mul_body(torch.stack([a8] * 7), torch.stack([a1, a2, a3, a4, a5, a6, a7]),
+                        folds, topf)
+    table = [one, a1, a2, a3, a4, a5, a6, a7, a8, *(p915[k] for k in range(7))]
+    acc = one
+    for d in window_digits(P - 2):
+        for _ in range(4):
+            acc = fp._sqr_fn(folds, topf, acc)
+        acc = fp._mul_body(acc, table[d], folds, topf)
+    return acc
+
+
+# one launch per inversion: 385 squares and 109 products on a warp per
+# lane element (csrc/inv.cu)
+inv_w4 = fp.KernelOp(_inv_w4_body, "inv_w4", "lh_inv_w4")
+
+
 def inv(a):
-    """a^(p-2): windowed Fermat inversion (0 maps to 0)."""
-    return pow_const_w4(a, P - 2)
+    """a^(p-2): windowed Fermat inversion (0 maps to 0), `pow_const_w4`'s
+    chain in one kernel (`inv_w4`)."""
+    return inv_w4(a)
 
 
 def f2inv(a):

@@ -10,15 +10,19 @@ barrier ends each stage.
 
 The programs are traced here from the plain bodies themselves
 (pairing._dbl_iter_body, pairing._cyc_sqr_body, jacobian._dbl_f2_body,
-chains._win_core_f2): run on symbolic rows,
-each of their Fp products and `reduce_light`s becomes a job whose operands
+chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
+fp._inv_bin_body): run on symbolic rows,
+each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
 where it reads its operands. A lazy sum is an exact linear combination of
 int32 limbs, inside the limb-bounds certificate, so the order of its adds
-does not change the limbs. The Fp products and `reduce_light` keep
-`_SCHED`'s carry passes; the device computes each one as fp._mul_body
-(both entry norms) and fp._reduce_light_body do.
+does not change the limbs. The Fp products, squares and `reduce_light`
+keep `_SCHED`'s carry passes; the device computes each one as
+fp._mul_body (both entry norms), fp._sqr_fn (one entry norm, at
+`sqr.entry`, then the operand times itself) and fp._reduce_light_body do.
+A square is a job kind of its own: `MUL(a, a)` would run two entry norms
+at `mul.entry_*` and give other lazy limbs.
 
 A program holds no select: a `torch.where` or a comparison on a traced
 value raises. A body with a per-element select (the window step's digit,
@@ -46,13 +50,13 @@ import threading
 import numpy as np
 import torch
 
-from . import chains, fp, jacobian, pairing
+from . import chains, fp, jacobian, pairing, tower
 
 W = fp.W
 
 # job kinds and the word layout, mirrored by csrc/coop.cuh (pinned by
 # tests/test_torch_coop.py)
-MUL, RL = 0, 1
+MUL, RL, SQR = 0, 1, 2
 H_STAGES, H_JOBS, H_ROWS, H_OUTS, H_INS, H_STAGE0 = 0, 1, 2, 3, 4, 5
 JOB_WORDS = 3          # kind | na << 8 | nb << 16, out row, term offset
 OUT_WORDS = 2          # term offset, term count
@@ -70,8 +74,14 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # but fewer blocks share an SM at 64 registers a thread (coop.cuh
 # min_blocks): with 4 warps 8, so 1,024 blocks fit the H100's 132 SMs in
 # one wave, and at that width 4 warps time fastest (tools/coop_warps.py).
+# f12mul's stages hold 54 products, then 36 and 18 reduce_light: 5 job
+# rounds on 32 warps, 9 on 16. 36 of its 46 launches a verify run at one
+# lane, the other 10 at the lane product's widths 512 ... 1; summed over
+# that mix 32 warps time 3 % under 16 (tools/coop_warps.py). The
+# inversion chains are serial: inv_w4's stages hold one job each (1 warp),
+# inv_bin's a bit's product and square side by side (2 warps).
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
-            3: ("g2_win_step", 4)}
+            3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2)}
 
 
 FP, FP2, FP12 = (), (2,), (2, 3, 2)
@@ -121,11 +131,11 @@ class Tracer:
     inputs, then each job's result). The bodies' lazy sums, stacks and
     component slices are linear, so they compute every operand's
     combination exactly; the tracer stands in for `folds`, and the Fp
-    bodies that see it (`_mul_body`, `_reduce_light_body`, see `_tracing`)
-    record one job per element of the stack they are given and return
-    that many fresh rows."""
+    bodies that see it (`_mul_body`, `_sqr_fn`, `_reduce_light_body`, see
+    `_tracing`) record one job per element of the stack they are given and
+    return that many fresh rows."""
 
-    N = 512  # rows a traced value can name
+    N = 640  # rows a traced value can name (inv_bin names 611)
 
     def __init__(self, fields):
         self.n_in = sum(int(np.prod(c, dtype=np.int64)) for c in fields)
@@ -155,9 +165,9 @@ _TRACE_LOCK = threading.Lock()
 
 @contextlib.contextmanager
 def _tracing():
-    """fp's two Fp bodies record when their `folds` is a Tracer, and run as
-    before for every other caller (a plain body on another thread too)."""
-    mul_body, rl_body = fp._mul_body, fp._reduce_light_body
+    """fp's three Fp bodies record when their `folds` is a Tracer, and run
+    as before for every other caller (a plain body on another thread too)."""
+    mul_body, sqr_fn, rl_body = fp._mul_body, fp._sqr_fn, fp._reduce_light_body
 
     def mul(a, b, folds, topf, norm_a=True, norm_b=True):
         if not isinstance(folds, Tracer):
@@ -166,17 +176,22 @@ def _tracing():
             raise ValueError("a warp product normalizes both entries")
         return folds.record(MUL, a, b)
 
+    def sqr(folds, topf, a):
+        if not isinstance(folds, Tracer):
+            return sqr_fn(folds, topf, a)
+        return folds.record(SQR, a)
+
     def rl(x, folds, topf):
         if not isinstance(folds, Tracer):
             return rl_body(x, folds, topf)
         return folds.record(RL, x)
 
     with _TRACE_LOCK:
-        fp._mul_body, fp._reduce_light_body = mul, rl
+        fp._mul_body, fp._sqr_fn, fp._reduce_light_body = mul, sqr, rl
         try:
             yield
         finally:
-            fp._mul_body, fp._reduce_light_body = mul_body, rl_body
+            fp._mul_body, fp._sqr_fn, fp._reduce_light_body = mul_body, sqr_fn, rl_body
 
 
 def trace(body, fields):
@@ -208,8 +223,9 @@ def encode(b: Tracer, outs: list) -> np.ndarray:
             last[x] = n_st + 1
     if any(last[r] < 0 for _, r, _ in b.jobs):
         raise ValueError("a job's result is never read")
-    # stages: products first (the long jobs), then reduce_light
-    order = sorted(range(len(b.jobs)), key=lambda j: (level[b.jobs[j][1]], b.jobs[j][0], j))
+    # stages: products and squares first (the long jobs), then reduce_light
+    order = sorted(range(len(b.jobs)),
+                   key=lambda j: (level[b.jobs[j][1]], b.jobs[j][0] == RL, j))
     # rows: inputs at 0 .. n_in-1; a result takes the lowest row whose
     # value no stage from its own on reads
     where = {r: r for r in range(b.n_in)}
@@ -274,6 +290,11 @@ def program(slot: int) -> np.ndarray:
         "jac_dbl_f2": (jacobian._dbl_f2_body, (FP2,) * 3),
         # acc, E (a point each) -> [4]acc, [4]acc + E (no selection)
         "g2_win_step": (chains._win_core_f2, (FP2,) * 6),
+        # a, b -> a b
+        "f12mul": (tower._f12mul_body, (FP12, FP12)),
+        # a, 1 -> a^(p-2): the 1 is a row the kernel writes, not an operand
+        "inv_w4": (chains._inv_w4_body, (FP, FP)),
+        "inv_bin": (fp._inv_bin_body, (FP, FP)),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 
@@ -293,7 +314,7 @@ def stats(slot: int) -> dict:
     jobs = w[H_STAGE0 + n_st + 1 :][: JOB_WORDS * n_jobs].reshape(-1, JOB_WORDS)
     return dict(
         stages=n_st, jobs=n_jobs, rows=n_rows, warps=nw,
-        products=int((jobs[:, 0] & 0xFF == MUL).sum()),
+        products=int((jobs[:, 0] & 0xFF != RL).sum()),
         rounds=int(sum(-(-int(n) // nw) for n in per_stage)),
         smem_bytes=4 * (TABLES + nw * SCRATCH + n_rows * W),
         words=len(w),
@@ -330,7 +351,7 @@ def header() -> str:
 def run_reference(words: np.ndarray, inputs, folds, topf):
     """Execute an encoded program on CPU tensors: `inputs` the input rows
     [n_in, W, S] int32; returns the output rows [n_out, W, S]. Every job
-    runs its plain Fp body (fp._mul_body, fp._reduce_light_body); a stage
+    runs its plain Fp body (fp._mul_body, fp._sqr_fn, fp._reduce_light_body); a stage
     that writes a row it also reads, or writes one row twice, raises."""
     w = [int(v) for v in words]
     n_st, n_rows, n_out, n_in = w[H_STAGES], w[H_ROWS], w[H_OUTS], w[H_INS]
@@ -358,6 +379,8 @@ def run_reference(words: np.ndarray, inputs, folds, topf):
             writes.append(out)
             if kind == MUL:
                 v = fp._mul_body(value(ta), value(tb), folds, topf)
+            elif kind == SQR:
+                v = fp._sqr_fn(folds, topf, value(ta))
             else:
                 v = fp._reduce_light_body(value(ta), folds, topf)
             results.append((out, v))

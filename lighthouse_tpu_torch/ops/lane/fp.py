@@ -388,12 +388,17 @@ def eq(x, y):
 # ---------------------------------------------------------------- pow / inv
 
 
+def one_like(a):
+    """The element 1 (fp.ONE) broadcast to the shape of `a`."""
+    return torch.from_numpy(ONE).to(a.device)[:, None].expand(a.shape)
+
+
 def pow_const(a, exponent: int):
     """a^e for a static int e: LSB-first square-and-multiply. The
     reference scans the bits with the multiply under lax.cond; this loop
     makes the same calls (`mul` on set bits, `sqr` on every bit, the last
     one included), so the limbs are identical."""
-    acc = torch.from_numpy(ONE).to(a.device)[:, None].expand(a.shape).contiguous()
+    acc = one_like(a).contiguous()
     base = norm3_x(a, site="fp.pow_const.entry")
     for i in range(max(exponent.bit_length(), 1)):
         if (exponent >> i) & 1:
@@ -402,9 +407,38 @@ def pow_const(a, exponent: int):
     return acc
 
 
+def _inv_bin_body(folds, topf, a, one=None):
+    """a^(p-2) by `pow_const`'s LSB-first binary chain, as one body: the
+    plain version of the `inv_bin` kernel, whose cooperative program
+    (ops/lane/coop.py) is traced from it. It calls `_mul_body` and
+    `_sqr_fn` in the order `pow_const(a, P - 2)` calls the `mul` and `sqr`
+    kernels (229 products on the set bits, a square on every bit), so the
+    limbs are `pow_const`'s. One call is left out: the square of `base`
+    after the last bit, whose result nothing reads (a program holds no
+    job whose result is never read); it changes no output limb. `one`:
+    the 1 the product starts from (a row of the program; the kernel
+    writes it)."""
+    e = P - 2
+    acc = one_like(a) if one is None else one
+    base = _norm(a, topf, "fp.pow_const.entry")
+    n = e.bit_length()
+    for i in range(n):
+        if (e >> i) & 1:
+            acc = _mul_body(acc, base, folds, topf)
+        if i < n - 1:
+            base = _sqr_fn(folds, topf, base)
+    return acc
+
+
+# one launch per inversion: 229 products and 380 squares on a block of
+# warps per lane element (csrc/inv.cu)
+inv_bin = KernelOp(_inv_bin_body, "inv_bin", "lh_inv_bin")
+
+
 def inv(a):
-    """a^(p-2): Fermat inversion (0 maps to 0)."""
-    return pow_const(a, P - 2)
+    """a^(p-2): Fermat inversion (0 maps to 0), `pow_const`'s chain in one
+    kernel (`inv_bin`)."""
+    return inv_bin(a)
 
 
 def batch_inv(a):

@@ -45,6 +45,7 @@ SOURCES = {
     "miller": "miller.cu",        # miller_dbl_iter, miller_add_iter, cyc_sqr
     "chains": "chains.cu",        # g1_win_step, g2_win_step
     "ladder": "ladder.cu",        # ladder_step_f1, ladder_step_f2
+    "inv": "inv.cu",              # inv_w4, inv_bin
     # the Fp-mul microbenchmark: built here with the rest, bound and given
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
@@ -87,6 +88,9 @@ ENTRIES = {
     "lh_miller_add_iter": ("miller", (FP12, FP2, FP2, FP2, FP2, FP2, FP, FP),
                            (FP12, FP2, FP2, FP2)),
     "lh_cyc_sqr": ("miller", (FP12,), (FP12,)),
+    # a -> a^(p-2): the windowed and the binary Fermat chain
+    "lh_inv_w4": ("inv", (FP,), (FP,)),
+    "lh_inv_bin": ("inv", (FP,), (FP,)),
 }
 
 NVCC_FLAGS = [
@@ -121,8 +125,8 @@ def nvcc_path() -> str:
 
 
 # the header of the cooperative kernels' programs (ops/lane/coop.py), which
-# build() writes into the build directory for csrc/miller.cu, jac_dbl.cu and
-# chains.cu
+# build() writes into the build directory for csrc/miller.cu, jac_dbl.cu,
+# chains.cu, tower.cu and inv.cu
 PROGRAMS_H = "coop_programs.h"
 
 

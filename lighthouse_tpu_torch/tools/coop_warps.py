@@ -12,8 +12,10 @@ variant with its rounds of jobs, its shared memory and the card.
 Run on a machine with a CUDA card:
 
     python -m lighthouse_tpu_torch.tools.coop_warps g2_win_step --S 1024 --warps 4 8
+    python -m lighthouse_tpu_torch.tools.coop_warps f12mul --S 1 512 --warps 8 16 32
 
-Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step.
+Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step, f12mul, inv_w4,
+inv_bin. Several widths (--S) share one build per warp count.
 """
 
 from __future__ import annotations
@@ -28,14 +30,15 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.lane import chains, coop, fp, jacobian as J, kernels, pairing
+from ..ops.lane import chains, coop, fp, jacobian as J, kernels, pairing, tower
 
 REPS = 50
 
 
 def _ops():
     return {"miller_dbl_iter": pairing._dbl_iter, "cyc_sqr": pairing.cyclotomic_sqr,
-            "jac_dbl_f2": J._dbl_f2, "g2_win_step": chains._win_step["fp2"]}
+            "jac_dbl_f2": J._dbl_f2, "g2_win_step": chains._win_step["fp2"],
+            "f12mul": tower.f12mul, "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin}
 
 
 @contextlib.contextmanager
@@ -82,6 +85,13 @@ def _device_ms(name: str, fn) -> float:
     return dev / sum(e.count for e in hits) / 1e3
 
 
+def equal_outputs(got: list, want) -> bool:
+    """A launch's outputs (a list) torch.equal to the plain body's, which
+    returns a tensor for one output and a tuple for several."""
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def run(name: str, S: int, counts, out=print) -> list:
     op = _ops()[name]
     lib = kernels.ENTRIES[op.symbol][0]
@@ -95,7 +105,7 @@ def run(name: str, S: int, counts, out=print) -> list:
             smem = getattr(so, f"lh_{lib}_launch_smem")(coop.slot(name))
         got = kernels.launch(op.symbol, args, lib=so)
         torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+        if not equal_outputs(got, want):
             raise AssertionError(f"{name} with {nw} warps != its plain body")
         if smem != st["smem_bytes"]:
             raise AssertionError(f"{name} with {nw} warps launches {smem} B, lays out "
@@ -122,13 +132,14 @@ def run(name: str, S: int, counts, out=print) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("name", choices=sorted(_ops()))
-    ap.add_argument("--S", type=int, default=1024, help="lanes (default 1024)")
+    ap.add_argument("--S", type=int, nargs="+", default=[1024], help="lanes (default 1024)")
     ap.add_argument("--warps", type=int, nargs="+", required=True)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("coop_warps: torch sees no CUDA device", file=sys.stderr)
         return 2
-    run(a.name, a.S, a.warps)
+    for S in a.S:
+        run(a.name, S, a.warps)
     return 0
 
 

@@ -3,9 +3,10 @@
 Fast tier: host packing limb-equal to the reference's `prepare_batch`, the
 policy rejections, one valid 2-set verdict through `local_phase` +
 `finish_phase` on the packed batch cut to its 2 real lanes (against the
-`cpu` backend), the bounded record of verify times, the launches per verify at buckets 128 and 1024 equal to
-the reference's dispatch census op by op (with shape-only stand-ins for
-the kernels, as the reference's census runs).
+`cpu` backend), the bounded record of verify times, the launches per
+verify at buckets 128 and 1024 equal to the reference's dispatch census op
+by op, each Fermat inversion's chain in one launch (with shape-only
+stand-ins for the kernels, as the reference's census runs).
 `crypto_heavy`: `local_phase` limb-equal to the reference's at 4 lanes, the
 verdict matrix of tests/test_tpu_backend.py on cut lanes, and one batch
 through the reference's own seam with the port registered as its "cuda"
@@ -29,23 +30,50 @@ from lighthouse_tpu_torch.crypto.bls import params
 from lighthouse_tpu_torch.crypto.bls.backends import cpu as CPU
 from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
 from lighthouse_tpu_torch.crypto.bls.keys import SecretKey, Signature, SignatureSet
-from lighthouse_tpu_torch.ops.lane import fp, kernels
+from lighthouse_tpu_torch.ops.lane import chains, fp, kernels
 
 REPO = Path(__file__).resolve().parents[1]
 
-# launches per verify: the reference's dispatch census
+# launches per verify in the reference: its dispatch census
 # (lighthouse_tpu.ops.costs.verify_kernel_costs), op by op
 _COMMON = {
     "sqr": 1539, "mul": 543, "cyc_sqr": 315, "miller_dbl_iter": 126,
     "g1_win_step": 32, "g2_win_step": 32, "reduce_light": 17, "miller_add_iter": 10,
     "f6mul": 4, "jac_dbl_f1": 2, "jac_add_f1": 1,
 }
-CENSUS = {
+REFERENCE = {
     128: {**_COMMON, "f2sqr": 428, "f2mul": 358, "jac_dbl_f2": 208, "f12mul": 43,
           "canon_reduce": 38, "jac_add_f2": 32},
     1024: {**_COMMON, "f2sqr": 434, "f2mul": 376, "jac_dbl_f2": 211, "f12mul": 46,
            "canon_reduce": 44, "jac_add_f2": 35},
 }
+# The port runs each Fermat inversion as one kernel where the reference
+# launches its chain op by op: `chains.inv` (pow_const_w4 of p - 2: the
+# table's sqr and its 3 stacked mul calls, then 4 sqr and 1 mul a window)
+# as `inv_w4`, `fp.inv` (pow_const: a sqr on every bit, a mul on each set
+# bit) as `inv_bin`. A verify makes 3 `chains.inv` (_to_affine_g1 and
+# _to_affine_g2 at the bucket's width, finish_phase's _to_affine_g2 at 1
+# lane) and 1 `fp.inv` (final_exp's f12inv).
+_E = params.P - 2
+CHAIN_LAUNCHES = {
+    "inv_w4": {"sqr": 1 + 4 * len(chains.window_digits(_E)),
+               "mul": 3 + len(chains.window_digits(_E))},
+    "inv_bin": {"sqr": _E.bit_length(), "mul": bin(_E).count("1")},
+}
+CHAINS_PER_VERIFY = {"inv_w4": 3, "inv_bin": 1}
+
+
+def _with_chains(reference: dict) -> dict:
+    """The reference's census with each inversion's chain in one launch."""
+    out = Counter(reference)
+    for chain, n in CHAINS_PER_VERIFY.items():
+        for op, per in CHAIN_LAUNCHES[chain].items():
+            out[op] -= n * per
+        out[chain] += n
+    return {k: v for k, v in out.items() if v}
+
+
+CENSUS = {bucket: _with_chains(ref) for bucket, ref in REFERENCE.items()}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -193,10 +221,16 @@ def _census(S: int) -> Counter:
 
 @pytest.mark.parametrize("bucket", [128, 1024])
 def test_launches_per_verify_equal_reference_census(bucket):
+    """The reference's census op by op, each inversion's chain in one
+    launch: of its 1,539 sqr and 543 mul, 3 sqr and 17 mul are left."""
     counts = _census(bucket)
     assert dict(counts) == CENSUS[bucket]
+    assert (counts["sqr"], counts["mul"]) == (3, 17)
     budgets = json.loads((REPO / "tests" / "budgets" / "kernel_costs.json").read_text())
-    assert sum(counts.values()) == budgets["buckets"][str(bucket)]["kernel_dispatches"]
+    ref_total = budgets["buckets"][str(bucket)]["kernel_dispatches"]
+    assert sum(REFERENCE[bucket].values()) == ref_total
+    folded = sum(n * (sum(CHAIN_LAUNCHES[c].values()) - 1) for c, n in CHAINS_PER_VERIFY.items())
+    assert sum(counts.values()) == ref_total - folded
 
 
 # ------------------------------------------------ crypto_heavy

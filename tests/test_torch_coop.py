@@ -1,17 +1,20 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
-`miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2` and `g2_win_step` run on the
-card as programs of warp jobs (csrc/coop.cuh), traced from their plain
-bodies. Here each encoded program is executed on CPU tensors job by job
-with the plain Fp bodies, stage by stage with its row reuse, and held limb
-for limb against the plain body it was traced from; `g2_win_step`'s
-program (the window step's arithmetic without its selects) with its
-block-uniform epilogue against the whole plain body, on every digit and
-infinity on either side. The tracer refuses a select; the generated header
-that compiles the programs in, the word layout, and the slots and warps per
-element that the CUDA sources take from it, are pinned to the Python side,
-as is tools/coop_warps.py's override of a warp count. The kernels
-themselves are held on the card by chip_smoke.py.
+`miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2`, `g2_win_step`, `f12mul` and
+the inversion chains `inv_w4` and `inv_bin` run on the card as programs
+of warp jobs (csrc/coop.cuh), traced from their plain bodies. Here each
+encoded program is executed on CPU tensors job by job with the plain Fp
+bodies, stage by stage with its row reuse, and held limb for limb against
+the plain body it was traced from; `g2_win_step`'s program (the window
+step's arithmetic without its selects) with its block-uniform epilogue
+against the whole plain body, on every digit and infinity on either side.
+A square is a job of its own kind, not a product of an operand with
+itself (the two differ in limbs). The tracer refuses a select; the
+generated header that compiles the programs in, the word layout, and the
+slots and warps per element that the CUDA sources take from it, are
+pinned to the Python side, as are tools/coop_warps.py's override of a warp
+count and its comparison of a kernel's outputs with the plain body's. The
+kernels themselves are held on the card by chip_smoke.py.
 """
 
 import re
@@ -21,13 +24,15 @@ import numpy as np
 import pytest
 import torch
 
-from lighthouse_tpu_torch.ops.lane import chains, coop, fp, jacobian as J, kernels, pairing
+from lighthouse_tpu_torch.ops.lane import chains, coop, fp, jacobian as J, kernels, pairing, tower
 from lighthouse_tpu_torch.tools import coop_warps
 
 CSRC = Path(coop.__file__).resolve().parents[2] / "csrc"
 F2, F12 = (2,), (2, 3, 2)
 
-# kernel -> (plain body, operand fields, lazy terms per operand, products)
+# kernel -> (plain body, operand fields, lazy terms per operand (ONE: the
+# element 1, which the kernel writes), products and squares)
+ONE = "one"
 BODIES = {
     "miller_dbl_iter": (pairing._dbl_iter_body, [F12, F2, F2, F2, (), ()],
                         [3, 1, 1, 2, 1, 1], 106),
@@ -35,14 +40,21 @@ BODIES = {
     "jac_dbl_f2": (J._dbl_f2_body, [F2, F2, F2], [1, 2, 1], 16),
     # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
     "g2_win_step": (chains._win_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 1], 75),
+    "f12mul": (tower._f12mul_body, [F12, F12], [3, 3], 54),
+    # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
+    "inv_w4": (chains._inv_w4_body, [(), ()], [2, ONE], 494),
+    "inv_bin": (fp._inv_bin_body, [(), ()], [2, ONE], 609),
 }
 # the kernels' sources, by the program each launches
 SOURCES = {"miller_dbl_iter": "miller.cu", "cyc_sqr": "miller.cu",
-           "jac_dbl_f2": "jac_dbl.cu", "g2_win_step": "chains.cu"}
+           "jac_dbl_f2": "jac_dbl.cu", "g2_win_step": "chains.cu", "f12mul": "tower.cu",
+           "inv_w4": "inv.cu", "inv_bin": "inv.cu"}
 
 
 def lazy(rng, lead, comp, S, terms):
     shape = (*lead, *comp, fp.W, S)
+    if terms == ONE:
+        return fp.one_like(torch.zeros(shape, dtype=torch.int32)).contiguous()
     out = np.zeros(shape, np.int32)
     for _ in range(terms):
         out += int(rng.choice([-1, 1])) * rng.integers(0, 1 << fp.B, shape, dtype=np.int32)
@@ -108,6 +120,31 @@ def test_win_step_program_with_epilogue_equals_plain_body():
         assert torch.equal(g, w)
 
 
+def test_square_is_a_job_kind_of_its_own():
+    """`fp._sqr_fn` traces as one SQR job (one entry norm at sqr.entry),
+    not as MUL(a, a) (two entry norms at mul.entry_*): on a 3-unit lazy
+    operand the two programs give other limbs of the same value, and each
+    equals the body it was traced from."""
+    c = fp.consts("cpu")
+    rng = np.random.default_rng(23)
+    # three standard elements added (limbs to 3 x 2047), the top two limbs
+    # set so that one carry pass leaves limb 35 above 11 bits: the second
+    # pass of a product's entry folds it back mod p, a square's one does not
+    a = torch.from_numpy(sum(rng.integers(0, 1 << fp.B, (fp.W, 4), dtype=np.int32)
+                             for _ in range(3)))
+    a[fp.W - 2], a[fp.W - 1] = 3 * fp.MASK, fp.MASK
+    bodies = {"sqr": lambda folds, topf, x: fp._sqr_fn(folds, topf, x),
+              "mul": lambda folds, topf, x: fp._mul_body(x, x, folds, topf)}
+    got = {}
+    for name, body in bodies.items():
+        t, outs = coop.trace(body, (coop.FP,))
+        assert [kind for kind, _, _ in t.jobs] == [coop.SQR if name == "sqr" else coop.MUL]
+        got[name] = coop.run_reference(coop.encode(t, outs), a[None], c["folds"], c["topf"])[0]
+        assert torch.equal(got[name], body(c["folds"], c["topf"], a))
+    assert not torch.equal(got["sqr"], got["mul"])
+    assert fp.unpack(fp.canonical(got["sqr"])) == fp.unpack(fp.canonical(got["mul"]))
+
+
 @pytest.mark.parametrize("body", ["add_f2", "where"])
 def test_tracer_refuses_a_select(body):
     """The add's structural-infinity test (a comparison) and a torch.where
@@ -134,7 +171,16 @@ def test_programs_fit_the_constant_bank():
     in its constant bank, beside fp_lane.cuh's FOLDS and TOPFM."""
     words = sum(coop.stats(slot)["words"] for slot in coop.PROGRAMS)
     assert words + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
-    assert "c_prog_g2_win_step" in coop.header()
+    assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
+    # with the inversion chains and f12mul: 9,234 words of seven programs,
+    # 5,455 words of the bank left
+    assert (words, coop.TABLES) == (9234, 1695)
+    fake = dict(coop.PROGRAMS)
+    fake[7], fake[8] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(coop, "PROGRAMS", fake)
+        with pytest.raises(ValueError, match="overflow the constant bank"):
+            coop.header()
 
 
 def _constexprs(text):
@@ -143,7 +189,7 @@ def _constexprs(text):
 
 def test_header_mirrors_python():
     hdr = _constexprs((CSRC / "coop.cuh").read_text())
-    for key in ("MUL", "RL", "H_STAGES", "H_JOBS", "H_ROWS", "H_OUTS", "H_INS",
+    for key in ("MUL", "RL", "SQR", "H_STAGES", "H_JOBS", "H_ROWS", "H_OUTS", "H_INS",
                 "H_STAGE0", "JOB_WORDS", "OUT_WORDS", "SCRATCH"):
         assert hdr[key] == getattr(coop, key), key
     assert _constexprs((CSRC / "fp_lane.cuh").read_text())["NFOLD"] == coop.NFOLD
@@ -158,10 +204,11 @@ def test_header_mirrors_python():
         assert f"lh::coop::{key}_WARPS" in src and f"lh::coop::{key}_SLOT" in src
         assert not re.search(r"constexpr int \w*WARPS = \d", src)
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
-    # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; acc, E -> [4]acc, [4]acc + E),
-    # as the sources' static_asserts check them
+    # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; acc, E -> [4]acc, [4]acc + E;
+    # a, b -> a b; a, 1 -> a^(p-2)), as the sources' static_asserts check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("cyc_sqr", 12, 12),
-                              ("jac_dbl_f2", 6, 6), ("g2_win_step", 12, 12)):
+                              ("jac_dbl_f2", 6, 6), ("g2_win_step", 12, 12),
+                              ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1)):
         w = coop.program(coop.slot(name))
         assert (w[coop.H_INS], w[coop.H_OUTS]) == (n_in, n_out)
 
@@ -179,14 +226,16 @@ def test_generated_header_holds_the_program(name):
 
 
 def test_tracing_leaves_other_callers_the_plain_bodies():
-    mul_body, rl_body = fp._mul_body, fp._reduce_light_body
+    mul_body, sqr_fn, rl_body = fp._mul_body, fp._sqr_fn, fp._reduce_light_body
     c = fp.consts("cpu")
     a = lazy(np.random.default_rng(5), (), (), 2, 1)
     with coop._tracing():
-        got = fp._mul_body(a, a, c["folds"], c["topf"]), fp._reduce_light_body(a, c["folds"], c["topf"])
-    assert (fp._mul_body, fp._reduce_light_body) == (mul_body, rl_body)
+        got = (fp._mul_body(a, a, c["folds"], c["topf"]), fp._sqr_fn(c["folds"], c["topf"], a),
+               fp._reduce_light_body(a, c["folds"], c["topf"]))
+    assert (fp._mul_body, fp._sqr_fn, fp._reduce_light_body) == (mul_body, sqr_fn, rl_body)
     assert torch.equal(got[0], mul_body(a, a, c["folds"], c["topf"]))
-    assert torch.equal(got[1], rl_body(a, c["folds"], c["topf"]))
+    assert torch.equal(got[1], sqr_fn(c["folds"], c["topf"], a))
+    assert torch.equal(got[2], rl_body(a, c["folds"], c["topf"]))
 
 
 def test_warps_override_builds_apart_and_restores():
@@ -200,3 +249,17 @@ def test_warps_override_builds_apart_and_restores():
         assert "constexpr int G2_WIN_STEP_WARPS = 8;" in coop.header()
         assert kernels.build_dir() != before
     assert coop.PROGRAMS[slot] == default and kernels.build_dir() == before
+
+
+def test_warps_tool_compares_one_output_and_several():
+    """The tool holds a launch's outputs (a list) to the plain body's: a
+    single tensor for a one-output kernel (cyc_sqr, f12mul, the
+    inversions), a tuple for several; one changed limb is unequal."""
+    a = lazy(np.random.default_rng(11), (), (), 3, 1)
+    b = a.clone()
+    b[0, 0] += 1
+    assert coop_warps.equal_outputs([a.clone()], a)
+    assert not coop_warps.equal_outputs([b], a)
+    assert coop_warps.equal_outputs([a.clone(), b.clone()], (a, b))
+    assert not coop_warps.equal_outputs([a.clone(), a.clone()], (a, b))
+    assert not coop_warps.equal_outputs([a.clone()], (a, b))

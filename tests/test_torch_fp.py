@@ -169,6 +169,21 @@ def test_batch_inv_equals_reference():
     ]
 
 
+def test_inv_bin_body_equals_reference():
+    """`fp.inv`'s one-kernel body (`pow_const`'s binary chain without the
+    square after the last bit, whose result nothing reads) against the
+    reference's `fp.inv` at 3 lanes of a 2-unit lazy operand, limb for
+    limb; on a CPU tensor `inv` runs that body and launches nothing."""
+    rng = np.random.default_rng(zlib.crc32(b"inv_bin"))
+    a = lazy(rng, (port.W, 3), terms=2)
+    c = port.consts("cpu")
+    got = port._inv_bin_body(c["folds"], c["topf"], torch.from_numpy(a))
+    assert np.array_equal(got.numpy(), np.asarray(ref.inv(jnp.asarray(a))))
+    port.reset_counts()
+    assert torch.equal(port.inv(torch.from_numpy(a)), got)
+    assert not port.LAUNCHES and not port.PLAIN_CUDA_CALLS
+
+
 def test_kernel_library_refuses_fortran_ordered_tables():
     """The libraries copy FOLDS/TOPFM by pointer: a table that is not
     C-ordered int32 (the concatenation of transposes comes out in Fortran

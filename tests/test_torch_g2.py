@@ -154,6 +154,28 @@ def test_windowed_inversions_equal_fermat():
     ]
 
 
+def test_inv_w4_body_equals_the_windowed_loop():
+    """`inv`'s one-kernel body makes `pow_const_w4(a, P - 2)`'s calls in
+    its order: the same limbs, on a 2-unit lazy operand at 2 x 3 lanes."""
+    rng = np.random.default_rng(zlib.crc32(b"inv_w4"))
+    a = torch.from_numpy(rng.integers(0, 1 << fp.B, (2, fp.W, 3), dtype=np.int32)
+                         - rng.integers(0, 1 << fp.B, (2, fp.W, 3), dtype=np.int32))
+    c = fp.consts("cpu")
+    assert torch.equal(chains._inv_w4_body(c["folds"], c["topf"], a), chains.pow_const_w4(a, P - 2))
+
+
+@pytest.mark.crypto_heavy
+def test_inv_w4_body_equals_reference_limb_for_limb():
+    """`_inv_w4_body` against the reference's `chains.inv` (its windowed
+    scan, jitted on CPU XLA) at 3 lanes of a 2-unit lazy operand."""
+    rng = np.random.default_rng(zlib.crc32(b"inv_w4-ref"))
+    a = (rng.integers(0, 1 << fp.B, (fp.W, 3), dtype=np.int32)
+         - rng.integers(0, 1 << fp.B, (fp.W, 3), dtype=np.int32))
+    c = fp.consts("cpu")
+    got = chains._inv_w4_body(c["folds"], c["topf"], torch.from_numpy(a))
+    assert np.array_equal(got.numpy(), np.asarray(jax.jit(ref_chains.inv)(jnp.asarray(a))))
+
+
 @pytest.mark.parametrize("nc", [1, 2])
 def test_scalar_mul_w2_equals_host(nc):
     mul = HOST[nc].mul
