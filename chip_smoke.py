@@ -16,9 +16,10 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the ten CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the seven cooperative kernels (csrc/coop.cuh:
-   miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step, f12mul and the
-   Fermat inversions inv_w4, inv_bin), their ptxas line, the dynamic shared
+   function; for the nine cooperative kernels (csrc/coop.cuh:
+   miller_dbl_iter, cyc_sqr, jac_dbl_f2, jac_add_f2, g1_win_step,
+   g2_win_step, f12mul and the Fermat inversions inv_w4, inv_bin), their
+   ptxas line, the dynamic shared
    memory their library launches them with (held equal to their program's
    layout) and their program's shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
@@ -58,10 +59,11 @@ non-zero before the last line:
    the same verdict), one commitment profiled for its device share.
 6. bls: jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step against their
    plain bodies on seeded operands (infinity lanes, every digit) at the
-   phase 3 widths, timed at S = 4096; the cooperative jac_dbl_f2 and
-   g2_win_step also at S = 1024 and at S = 1 and 2 (every combination of
-   digit, accumulator at infinity and entry at infinity, a hold per lane
-   or pair), in device ms and bound at S = 1, 2 and 1024; all 17 kernels
+   phase 3 widths, timed at S = 4096; all four, cooperative, also at S =
+   1024 and at S = 1 and 2 (every combination of digit, accumulator or P1
+   at infinity and entry or P2 at infinity, a hold per lane or pair), in
+   device ms and bound at S = 1, 2 and 1024, with the latency floor at S =
+   1; all 17 kernels
    against theirs on
    every operand layout a real bucket-128 verify meets, at S = 1, 2, the
    layout's own width and 2 x 128, each timed at the path's width. Then
@@ -220,11 +222,12 @@ def check_launches() -> dict:
     return _with_chains(op_by_op, {"inv_bin": 1})
 
 
-# the cooperative kernels (csrc/coop.cuh; slices 5-7), by the library that
+# the cooperative kernels (csrc/coop.cuh; slices 5-8), by the library that
 # launches them: also held at the bucket-1024 width and read in device ms
 # at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
-             "g2_win_step": "chains", "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv"}
+             "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
+             "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
 # the dependent multiply-adds of one warp product (a column's 36, a fold's
@@ -1168,8 +1171,9 @@ def _scalars(rng, n: int) -> list:
 
 def _seeded_bls_holds(rng, out: dict) -> None:
     """Slice 3's four kernels against their plain bodies on seeded operands
-    (infinity lanes, every digit), timed at S=4096; the cooperative two
-    also at S=1024, at S=1 and 2 on every WIN_COMBOS entry, and in device
+    (infinity lanes, every digit), timed at S=4096; the cooperative ones
+    (all four since slice 8) also at S=1024, at S=1 and 2 on every
+    WIN_COMBOS entry (an add reads its P1 and P2 infinity), and in device
     ms and bound at REDESIGNED_S."""
     for name in BLS_SEEDED:
         f2 = name in ("jac_dbl_f2", "jac_add_f2", "g2_win_step")

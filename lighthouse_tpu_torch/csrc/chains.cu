@@ -18,22 +18,22 @@
 // products against ~11 KB). The digit is one int32 per lane ([K, 1, S]),
 // not a field element.
 //
-// `g1_win_step` keeps one thread per lane element over `lh::win_step<Fp1>`
-// (jac.cuh): the accumulator, the table and the temporaries in the
-// thread's local memory.
-//
-// `g2_win_step` is cooperative (coop.cuh): a block of G2_WIN_STEP_WARPS
-// warps per lane element. Its program, traced by ops/lane/coop.py from
-// `_win_core_f2` (the two doublings and add-2007-bl without its selection:
-// 23 stages of 129 jobs, 75 of them products, on 53 rows), maps (acc, E)
-// to ([4]acc, [4]acc + E). The selects of the plain body are uniform over
-// the block, one lane element, so they only choose rows: the block reads
-// its digit and loads T[digit] as E, tests E's Z before the program and
-// [4]acc's Z after it (`__syncthreads_or`), then writes [4]acc, E or the
-// sum in the body's order of precedence (`_win_select`).
+// Both are cooperative (coop.cuh), one kernel template `win_step` over the
+// component count C (1 over Fp, 2 over Fp2): a block of G1_WIN_STEP_WARPS
+// or G2_WIN_STEP_WARPS warps per lane element, its rows in shared memory,
+// each Fp product and reduce_light one warp's job. The programs, traced by
+// ops/lane/coop.py from `_win_core_f1` (18 stages of 42 jobs, 30 of them
+// products, on 20 rows) and `_win_core_f2` (23 stages of 129 jobs, 75
+// products, on 53 rows), map (acc, E) to ([4]acc, [4]acc + E): the two
+// doublings and add-2007-bl without its selection. The selects of the
+// plain body are uniform over the block, one lane element, so they only
+// choose rows: the block reads its digit and loads T[digit] as E, tests
+// E's Z before the program and [4]acc's Z after it (`__syncthreads_or`),
+// then writes [4]acc, E or the sum in the body's order of precedence
+// (`_win_select`). G1's program replaces one thread per lane element that
+// kept the accumulator, the table and the temporaries in local memory.
 #include "coop.cuh"
 #include "coop_programs.h"
-#include "jac.cuh"
 
 namespace {
 
@@ -44,35 +44,16 @@ struct Coords {
   const int* p[12];
 };
 
-__global__ void __launch_bounds__(lh::THREADS)
-    k_g1_win_step(Coords in, const int* __restrict__ dig, int* __restrict__ ox,
-                  int* __restrict__ oy, int* __restrict__ oz, int K, int S) {
-  long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  // acc, T1, T2, T3: three coordinates each, back to back
-  int pts[4][3 * W];
-#pragma unroll 1
-  for (int p = 0; p < 4; ++p) {
-#pragma unroll 1
-    for (int c = 0; c < 3; ++c) lh::load_rows<1>(pts[p] + c * W, in.p[3 * p + c], k, s, S);
-  }
-  const int d = dig[k * S + s];
-  lh::win_step<lh::Fp1>(pts[0], pts[1], pts[2], pts[3], d, pts[0]);
-  lh::store_rows<1>(ox, pts[0], k, s, S);
-  lh::store_rows<1>(oy, pts[0] + W, k, s, S);
-  lh::store_rows<1>(oz, pts[0] + 2 * W, k, s, S);
-}
-
-// ------------------------------------------------------------ cooperative
-
-constexpr int NW = lh::coop::G2_WIN_STEP_WARPS;  // from ops/lane/coop.py PROGRAMS
+// warps per lane element, from ops/lane/coop.py PROGRAMS
+constexpr int NW1 = lh::coop::G1_WIN_STEP_WARPS;
+constexpr int NW2 = lh::coop::G2_WIN_STEP_WARPS;
+static_assert(lh::coop::G1_WIN_STEP_INS == 6 && lh::coop::G1_WIN_STEP_OUTS == 6,
+              "g1_win_step: acc, E -> [4]acc, [4]acc + E");
 static_assert(lh::coop::G2_WIN_STEP_INS == 12 && lh::coop::G2_WIN_STEP_OUTS == 12,
               "g2_win_step: acc, E -> [4]acc, [4]acc + E");
 // the dynamic shared memory each block launches with
-constexpr int WIN_SMEM = 4 * lh::coop::smem_ints(NW, lh::coop::G2_WIN_STEP_ROWS);
-
-using lh::coop::at;
-using lh::coop::c_prog_g2_win_step;
+constexpr int WIN1_SMEM = 4 * lh::coop::smem_ints(NW1, lh::coop::G1_WIN_STEP_ROWS);
+constexpr int WIN2_SMEM = 4 * lh::coop::smem_ints(NW2, lh::coop::G2_WIN_STEP_ROWS);
 
 // Coordinate c of the table entry of digit d: T3 for 3, T2 for 2, T1 for
 // 0 and 1 (constant indices: a dynamic index into the parameter struct
@@ -81,46 +62,44 @@ __device__ __forceinline__ const int* entry(const Coords& in, int d, int c) {
   return d == 3 ? in.p[9 + c] : (d == 2 ? in.p[6 + c] : in.p[3 + c]);
 }
 
-__global__ void __launch_bounds__(NW * 32, lh::coop::min_blocks(NW))
-    k_g2_win_step(Coords in, const int* __restrict__ dig, int* __restrict__ ox,
-                  int* __restrict__ oy, int* __restrict__ oz, int S) {
-  const int* prog = c_prog_g2_win_step;
+// One window step of lane element blockIdx.x through program `prog`, over
+// points of C rows a coordinate.
+template <int NW, int C>
+__device__ __forceinline__ void win_step(const int* prog, const Coords& in,
+                                         const int* __restrict__ dig, int* __restrict__ ox,
+                                         int* __restrict__ oy, int* __restrict__ oz, int S) {
   long k, s;
   lh::coop::block_elem(S, &k, &s);
   int* smem = lh::coop::dyn_smem();
   int* rows = lh::coop::setup<NW>(smem);
   const int d = dig[k * S + s];
-  const int* e[3] = {entry(in, d, 0), entry(in, d, 1), entry(in, d, 2)};
-  // the program's input rows: acc (X, Y, Z, 2 each), then E = T[d]
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    lh::coop::load<NW>(rows + 2 * c * W, in.p[c], 2, k, s, S);
-    lh::coop::load<NW>(rows + (6 + 2 * c) * W, e[c], 2, k, s, S);
-  }
+  const int *ex = entry(in, d, 0), *ey = entry(in, d, 1), *ez = entry(in, d, 2);
+  // the program's input rows: acc, then E = T[d]
+  lh::coop::load_point<NW, C>(rows, in.p[0], in.p[1], in.p[2], k, s, S);
+  lh::coop::load_point<NW, C>(rows + 3 * C * W, ex, ey, ez, k, s, S);
   __syncthreads();
-  // structural infinity (`_is_zero`: every limb of both components 0) of
-  // E's Z, rows 10-11, before the program may reuse them ...
-  int nz = 0;
-  for (int t = threadIdx.x; t < 2 * W; t += NW * 32) nz |= rows[10 * W + t];
-  const bool p2_inf = !__syncthreads_or(nz);
+  // structural infinity of E's Z (rows 5C ..) before the program may
+  // reuse them, and of [4]acc's Z (outputs 2C ..) after it
+  const bool p2_inf = lh::coop::rows_zero<NW>(rows + 5 * C * W, C);
   lh::coop::run<NW>(prog, smem);
-  // ... and of [4]acc's Z, outputs 4-5
-  nz = 0;
-  for (int t = threadIdx.x; t < 2 * W; t += NW * 32) {
-    nz |= lh::coop::out_limb(prog, smem, NW, 4 + t / W, t % W);
-  }
-  const bool p1_inf = !__syncthreads_or(nz);
+  const bool p1_inf = lh::coop::outs_zero<NW>(prog, smem, 2 * C, C);
   // `_win_select`: digit 0 -> [4]acc; else P1 = [4]acc at infinity -> E;
-  // else E at infinity -> [4]acc; else the sum (outputs 6-11)
+  // else E at infinity -> [4]acc; else the sum (outputs 3C ..)
   const bool pick_e = d != 0 && p1_inf;
-  const int first = (d == 0 || p2_inf) ? 0 : 6;
-  for (int t = threadIdx.x; t < 6 * W; t += NW * 32) {
-    const int o = t / W, i = t - o * W;  // coordinate o / 2, component o % 2
-    const long a = at(2, o % 2, i, k, s, S);
-    const int* src = o < 2 ? e[0] : (o < 4 ? e[1] : e[2]);
-    (o < 2 ? ox : (o < 4 ? oy : oz))[a] =
-        pick_e ? src[a] : lh::coop::out_limb(prog, smem, NW, first + o, i);
-  }
+  const int first = (d == 0 || p2_inf) ? 0 : 3 * C;
+  lh::coop::store_point<NW, C>(prog, smem, first, pick_e, ex, ey, ez, ox, oy, oz, k, s, S);
+}
+
+__global__ void __launch_bounds__(NW1 * 32, lh::coop::min_blocks(NW1))
+    k_g1_win_step(Coords in, const int* __restrict__ dig, int* __restrict__ ox,
+                  int* __restrict__ oy, int* __restrict__ oz, int S) {
+  win_step<NW1, 1>(lh::coop::c_prog_g1_win_step, in, dig, ox, oy, oz, S);
+}
+
+__global__ void __launch_bounds__(NW2 * 32, lh::coop::min_blocks(NW2))
+    k_g2_win_step(Coords in, const int* __restrict__ dig, int* __restrict__ ox,
+                  int* __restrict__ oy, int* __restrict__ oz, int S) {
+  win_step<NW2, 2>(lh::coop::c_prog_g2_win_step, in, dig, ox, oy, oz, S);
 }
 
 Coords coords(const void* const* a) {
@@ -135,16 +114,22 @@ LH_EXPORT int lh_chains_init(const void* folds, const void* topfm) {
   int e = lh::copy_consts(folds, topfm);
   if (!e) e = lh::coop::copy_tables(folds, topfm);
   if (!e) {
+    e = (int)cudaFuncSetAttribute(k_g1_win_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  WIN1_SMEM);
+  }
+  if (!e) {
     e = (int)cudaFuncSetAttribute(k_g2_win_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  WIN_SMEM);
+                                  WIN2_SMEM);
   }
   return e;
 }
 
 // The dynamic shared memory (bytes) a block of program `slot` (coop.py
-// PROGRAMS: g2_win_step) launches with; -1 for another slot.
+// PROGRAMS: g1_win_step, g2_win_step) launches with; -1 for another slot.
 LH_EXPORT int lh_chains_launch_smem(int slot) {
-  return slot == lh::coop::G2_WIN_STEP_SLOT ? WIN_SMEM : -1;
+  return slot == lh::coop::G1_WIN_STEP_SLOT
+             ? WIN1_SMEM
+             : (slot == lh::coop::G2_WIN_STEP_SLOT ? WIN2_SMEM : -1);
 }
 
 LH_EXPORT const char* lh_chains_error_string(int e) {
@@ -162,15 +147,15 @@ LH_EXPORT const char* lh_chains_error_string(int e) {
 
 LH_EXPORT int lh_g1_win_step(LH_WIN_ARGS) {
   const void* a[12] = {xa, ya, za, x1, y1, z1, x2, y2, z2, x3, y3, z3};
-  k_g1_win_step<<<lh::blocks_for(K, S), lh::THREADS, 0,
+  k_g1_win_step<<<(unsigned)((long)K * S), NW1 * 32, WIN1_SMEM,
                   (cudaStream_t)stream>>>(coords(a), (const int*)dig,
-                                          (int*)ox, (int*)oy, (int*)oz, K, S);
+                                          (int*)ox, (int*)oy, (int*)oz, S);
   return (int)cudaGetLastError();
 }
 
 LH_EXPORT int lh_g2_win_step(LH_WIN_ARGS) {
   const void* a[12] = {xa, ya, za, x1, y1, z1, x2, y2, z2, x3, y3, z3};
-  k_g2_win_step<<<(unsigned)((long)K * S), NW * 32, WIN_SMEM,
+  k_g2_win_step<<<(unsigned)((long)K * S), NW2 * 32, WIN2_SMEM,
                   (cudaStream_t)stream>>>(coords(a), (const int*)dig,
                                           (int*)ox, (int*)oy, (int*)oz, S);
   return (int)cudaGetLastError();

@@ -342,5 +342,60 @@ __device__ __forceinline__ int out_limb(const int* prog, const int* smem, int nw
   return (int)s;
 }
 
+// ------------------------------------------------ the group kernels' rows
+// A point is 3 coordinates (X, Y, Z) of C rows each, in global memory as
+// three [K, C, W, S] batches. The group kernels (jac_dbl.cu, jac_add.cu,
+// chains.cu) make their plain bodies' selects around the program: one
+// block is one lane element, so a structural-infinity or digit test is
+// uniform over the block and only picks the rows the block writes.
+
+// Point (x, y, z) of lane element (k, s) into the rows from `rows`.
+template <int NW, int C>
+__device__ __forceinline__ void load_point(int* rows, const int* __restrict__ x,
+                                           const int* __restrict__ y,
+                                           const int* __restrict__ z, long k, long s, int S) {
+  load<NW>(rows, x, C, k, s, S);
+  load<NW>(rows + C * W, y, C, k, s, S);
+  load<NW>(rows + 2 * C * W, z, C, k, s, S);
+}
+
+// Structural infinity (`_is_zero`: every limb exactly 0) of the n rows
+// from `rows`, read before the program may reuse them. All threads of the
+// block; a block barrier.
+template <int NW>
+__device__ __forceinline__ bool rows_zero(const int* rows, int n) {
+  int nz = 0;
+  for (int t = threadIdx.x; t < n * W; t += NW * 32) nz |= rows[t];
+  return !__syncthreads_or(nz);
+}
+
+// ... and of the program's outputs o .. o + n - 1, after it.
+template <int NW>
+__device__ __forceinline__ bool outs_zero(const int* prog, const int* smem, int o, int n) {
+  int nz = 0;
+  for (int t = threadIdx.x; t < n * W; t += NW * 32) {
+    nz |= out_limb(prog, smem, NW, o + t / W, t % W);
+  }
+  return !__syncthreads_or(nz);
+}
+
+// The point of lane element (k, s) into (ox, oy, oz): where `copy`
+// (uniform over the block), the same rows of (sx, sy, sz) in global
+// memory, else the program's outputs first .. first + 3 C - 1. Constant
+// pointer picks: a dynamic index into an array of pointers would put it
+// on the stack.
+template <int NW, int C>
+__device__ __forceinline__ void store_point(const int* prog, const int* smem, int first,
+                                            bool copy, const int* sx, const int* sy,
+                                            const int* sz, int* ox, int* oy, int* oz,
+                                            long k, long s, int S) {
+  for (int t = threadIdx.x; t < 3 * C * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W, c = o / C;  // coordinate c, component o % C
+    const long a = at(C, o % C, i, k, s, S);
+    (c == 0 ? ox : (c == 1 ? oy : oz))[a] =
+        copy ? (c == 0 ? sx : (c == 1 ? sy : sz))[a] : out_limb(prog, smem, NW, first + o, i);
+  }
+}
+
 }  // namespace coop
 }  // namespace lh

@@ -48,8 +48,12 @@ constexpr int CANON_FOLD_D = 0;
 
 // FOLDS [W, 41] and TOPFM [3, CONVW], row-major; every thread of a warp
 // reads the same entry at the same time, which constant memory broadcasts.
-static __constant__ int c_folds[W * NFOLD];
-static __constant__ int c_topfm[3 * CONVW];
+// Aligned: the bank places them after the cooperative programs
+// (coop_programs.h), and at an offset that is not a multiple of 8 ptxas
+// reads neighbouring entries one word at a time, not in 64-bit pairs
+// (`k_f2mul` took 44 % longer so).
+static __constant__ __align__(16) int c_folds[W * NFOLD];
+static __constant__ __align__(16) int c_topfm[3 * CONVW];
 
 // topfold row by carry width (`_TROW`): 73 -> 0, 37 -> 1, 36 -> 2
 __host__ __device__ constexpr int trow(int n) {

@@ -1,7 +1,7 @@
 // Jacobian group operations over Fp (G1) and Fp2 (G2) as CUDA device
 // functions, one thread per lane element: the device half of the bodies of
-// lighthouse_tpu_torch/ops/lane/jacobian.py (`_dbl_body`, `_add_body`) and
-// chains.py (`_win_step_body`).
+// lighthouse_tpu_torch/ops/lane/jacobian.py (`_dbl_body`, `_add_body`) for
+// the one-thread kernels (`jac_dbl_f1`, `jac_add_f1`, the ladder steps).
 //
 // The bodies are written once, templated on the field, as the reference's
 // are generic over its `f2` flag:
@@ -124,23 +124,6 @@ __device__ __noinline__ void jac_add(const int* X1, const int* Y1,
     copy_n<N>(Y3, src_y);
     copy_n<N>(Z3, src_z);
   }
-}
-
-// `_win_step_body`: acc <- [4]acc + T[digit]. Two doublings; the table
-// entry T1, T2 or T3 picked by the digit (T1 for digits 0 and 1); the add
-// on every lane; digit 0 passes the doubled accumulator through. The
-// output may alias acc.
-template <class F>
-__device__ __forceinline__ void win_step(const int* acc, const int* T1,
-                                         const int* T2, const int* T3,
-                                         int dig, int* out) {
-  constexpr int N = F::N;
-  int a[3 * N], b[3 * N];
-  jac_dbl<F>(acc, acc + N, acc + 2 * N, a, a + N, a + 2 * N);
-  jac_dbl<F>(a, a + N, a + 2 * N, b, b + N, b + 2 * N);
-  const int* e = dig == 3 ? T3 : (dig == 2 ? T2 : T1);
-  jac_add<F>(b, b + N, b + 2 * N, e, e + N, e + 2 * N, a, a + N, a + 2 * N);
-  copy_n<3 * N>(out, dig == 0 ? b : a);
 }
 
 }  // namespace lh

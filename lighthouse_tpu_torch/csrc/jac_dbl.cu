@@ -53,7 +53,6 @@ static_assert(lh::coop::JAC_DBL_F2_INS == 6 && lh::coop::JAC_DBL_F2_OUTS == 6,
 // the dynamic shared memory each block launches with
 constexpr int DBL_F2_SMEM = 4 * lh::coop::smem_ints(NW, lh::coop::JAC_DBL_F2_ROWS);
 
-using lh::coop::at;
 using lh::coop::c_prog_jac_dbl_f2;
 
 __global__ void __launch_bounds__(NW * 32, lh::coop::min_blocks(NW))
@@ -65,17 +64,12 @@ __global__ void __launch_bounds__(NW * 32, lh::coop::min_blocks(NW))
   int* smem = lh::coop::dyn_smem();
   int* rows = lh::coop::setup<NW>(smem);
   // the program's input rows: X, Y, Z (2 each)
-  lh::coop::load<NW>(rows, x, 2, k, s, S);
-  lh::coop::load<NW>(rows + 2 * W, y, 2, k, s, S);
-  lh::coop::load<NW>(rows + 4 * W, z, 2, k, s, S);
+  lh::coop::load_point<NW, 2>(rows, x, y, z, k, s, S);
   __syncthreads();
   lh::coop::run<NW>(c_prog_jac_dbl_f2, smem);
   // its outputs: X3, Y3, Z3 (2 each)
-  for (int t = threadIdx.x; t < 6 * W; t += NW * 32) {
-    const int o = t / W, i = t - o * W;
-    (o < 2 ? ox : (o < 4 ? oy : oz))[at(2, o % 2, i, k, s, S)] =
-        lh::coop::out_limb(c_prog_jac_dbl_f2, smem, NW, o, i);
-  }
+  lh::coop::store_point<NW, 2>(c_prog_jac_dbl_f2, smem, 0, false, x, y, z, ox, oy, oz, k, s,
+                               S);
 }
 
 }  // namespace

@@ -15,7 +15,10 @@ Port of lighthouse_tpu/ops/lane/chains.py:
   `g2_win_step`, csrc/chains.cu: 2 doublings, the 3-way table select by
   the lane's digit, one branchless add, and the digit-0 pass-through of
   the doubled accumulator). `_win_step_body` is their plain PyTorch
-  version.
+  version. Both kernels are cooperative: their programs are traced from
+  `_win_core_f1` / `_win_core_f2` (ops/lane/coop.py), and the digit and
+  infinity selects (`_win_pick`, `_win_select`) sit in the kernels'
+  epilogue.
 
 Collision safety (the reference's argument): for a base in the r-torsion,
 once acc is not infinity its scalar prefix k gives acc = [4k]P with
@@ -157,6 +160,10 @@ def _win_step_body(
     entry = _win_pick(dig, (X1, Y1, Z1), (X2, Y2, Z2), (X3, Y3, Z3), f2)
     out = _win_core(folds, topf, Xa, Ya, Za, *entry, f2=f2)
     return _win_select(dig, out[:3], entry, out[3:], f2)
+
+
+def _win_core_f1(folds, topf, *args):
+    return _win_core(folds, topf, *args, f2=False)
 
 
 def _win_core_f2(folds, topf, *args):

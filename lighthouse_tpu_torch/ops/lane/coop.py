@@ -11,7 +11,8 @@ barrier ends each stage.
 The programs are traced here from the plain bodies themselves
 (pairing._dbl_iter_body, pairing._cyc_sqr_body, jacobian._dbl_f2_body,
 chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
-fp._inv_bin_body): run on symbolic rows,
+fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1): run on
+symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -29,7 +30,8 @@ value raises. A body with a per-element select (the window step's digit,
 the add's structural infinity) is traced without it, and its kernel makes
 the select after the program, in an epilogue: one block is one lane
 element, so the select is uniform over the block and only picks which
-rows the block loads or writes (csrc/chains.cu `k_g2_win_step`).
+rows the block loads or writes (csrc/chains.cu `win_step`, csrc/jac_add.cu
+`k_jac_add_f2`).
 
 Each job is scheduled at the earliest stage its operands allow, and its
 result takes the lowest shared-memory row that no later stage reads. The
@@ -80,8 +82,18 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # that mix 32 warps time 3 % under 16 (tools/coop_warps.py). The
 # inversion chains are serial: inv_w4's stages hold one job each (1 warp),
 # inv_bin's a bit's product and square side by side (2 warps).
+# jac_add_f2's 10 stages hold 12, 12, 10, 9, 10, 6, 5, 5, 2, 2 jobs: 23
+# rounds on 4 warps, 15 on 8. 25 of its 35 launches a bucket-1024 verify
+# run at 1,024 lanes (4 warps 0.0694 ms, 8 warps 0.0727), the lane sum's
+# 10 at 512 ... 1 (4 warps 0.0380-0.0228, 8 warps 0.0392-0.0184): over
+# that mix 4 warps take 1.987 ms and 8 warps 2.032. g1_win_step's 18
+# stages hold 1-4 jobs: 25 rounds on 2 warps, 18 on 4; 4 warps time
+# faster at one lane (0.0209 against 0.0256 ms) and at 1,024, where all
+# 32 launches a verify run (0.0493 against 0.0505). Device ms from
+# tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
-            3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2)}
+            3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
+            7: ("jac_add_f2", 4), 8: ("g1_win_step", 4)}
 
 
 FP, FP2, FP12 = (), (2,), (2, 3, 2)
@@ -295,6 +307,10 @@ def program(slot: int) -> np.ndarray:
         # a, 1 -> a^(p-2): the 1 is a row the kernel writes, not an operand
         "inv_w4": (chains._inv_w4_body, (FP, FP)),
         "inv_bin": (fp._inv_bin_body, (FP, FP)),
+        # P1, P2 -> P1 + P2 (no selection)
+        "jac_add_f2": (jacobian._add_core_f2, (FP2,) * 6),
+        # acc, E -> [4]acc, [4]acc + E (no selection)
+        "g1_win_step": (chains._win_core_f1, (FP,) * 6),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 

@@ -126,7 +126,7 @@ def nvcc_path() -> str:
 
 # the header of the cooperative kernels' programs (ops/lane/coop.py), which
 # build() writes into the build directory for csrc/miller.cu, jac_dbl.cu,
-# chains.cu, tower.cu and inv.cu
+# jac_add.cu, chains.cu, tower.cu and inv.cu
 PROGRAMS_H = "coop_programs.h"
 
 

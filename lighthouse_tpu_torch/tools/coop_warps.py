@@ -14,8 +14,9 @@ Run on a machine with a CUDA card:
     python -m lighthouse_tpu_torch.tools.coop_warps g2_win_step --S 1024 --warps 4 8
     python -m lighthouse_tpu_torch.tools.coop_warps f12mul --S 1 512 --warps 8 16 32
 
-Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, g2_win_step, f12mul, inv_w4,
-inv_bin. Several widths (--S) share one build per warp count.
+Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, jac_add_f2, g1_win_step,
+g2_win_step, f12mul, inv_w4, inv_bin. Several widths (--S) share one build
+per warp count. The seeded operands put no point at infinity.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ REPS = 50
 
 def _ops():
     return {"miller_dbl_iter": pairing._dbl_iter, "cyc_sqr": pairing.cyclotomic_sqr,
-            "jac_dbl_f2": J._dbl_f2, "g2_win_step": chains._win_step["fp2"],
+            "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
+            "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
             "f12mul": tower.f12mul, "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin}
 
 

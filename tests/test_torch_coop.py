@@ -1,13 +1,16 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
-`miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2`, `g2_win_step`, `f12mul` and
-the inversion chains `inv_w4` and `inv_bin` run on the card as programs
-of warp jobs (csrc/coop.cuh), traced from their plain bodies. Here each
-encoded program is executed on CPU tensors job by job with the plain Fp
-bodies, stage by stage with its row reuse, and held limb for limb against
-the plain body it was traced from; `g2_win_step`'s program (the window
-step's arithmetic without its selects) with its block-uniform epilogue
-against the whole plain body, on every digit and infinity on either side.
+`miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`,
+`g2_win_step`, `f12mul` and the inversion chains `inv_w4` and `inv_bin`
+run on the card as programs of warp jobs (csrc/coop.cuh), traced from
+their plain bodies. Here each encoded program is executed on CPU tensors
+job by job with the plain Fp bodies, stage by stage with its row reuse,
+and held limb for limb against the plain body it was traced from; the
+window steps' programs (their arithmetic without the selects), over G1
+and G2, with their block-uniform epilogue against the whole plain body,
+on every digit and infinity on either side, and `jac_add_f2`'s with its
+epilogue against `_add_f2_body`, with P1, P2, both or neither at
+infinity.
 A square is a job of its own kind, not a product of an operand with
 itself (the two differ in limbs). The tracer refuses a select; the
 generated header that compiles the programs in, the word layout, and the
@@ -38,6 +41,9 @@ BODIES = {
                         [3, 1, 1, 2, 1, 1], 106),
     "cyc_sqr": (pairing._cyc_sqr_body, [F12], [3], 18),
     "jac_dbl_f2": (J._dbl_f2_body, [F2, F2, F2], [1, 2, 1], 16),
+    # the add's arithmetic: P1, P2 -> P1 + P2
+    "jac_add_f2": (J._add_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 2], 43),
+    "g1_win_step": (chains._win_core_f1, [()] * 6, [1, 2, 1, 1, 1, 1], 30),
     # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
     "g2_win_step": (chains._win_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 1], 75),
     "f12mul": (tower._f12mul_body, [F12, F12], [3, 3], 54),
@@ -47,8 +53,9 @@ BODIES = {
 }
 # the kernels' sources, by the program each launches
 SOURCES = {"miller_dbl_iter": "miller.cu", "cyc_sqr": "miller.cu",
-           "jac_dbl_f2": "jac_dbl.cu", "g2_win_step": "chains.cu", "f12mul": "tower.cu",
-           "inv_w4": "inv.cu", "inv_bin": "inv.cu"}
+           "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
+           "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
+           "inv_bin": "inv.cu"}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -88,15 +95,19 @@ def test_program_equals_plain_body(name):
     assert torch.equal(got, torch.cat([rows(w, lead) for w in want]))
 
 
-def test_win_step_program_with_epilogue_equals_plain_body():
-    """g2_win_step as its kernel computes it: the digit picks E (`_win_pick`),
-    the program maps (acc, E) to ([4]acc, [4]acc + E), and the epilogue
-    selects per lane element (`_win_select`). Every (digit, accumulator at
-    infinity, entry at infinity) once, on 2 x 8 lane elements."""
+@pytest.mark.parametrize("name", ["g1_win_step", "g2_win_step"])
+def test_win_step_program_with_epilogue_equals_plain_body(name):
+    """A window step as its kernel computes it: the digit picks E
+    (`_win_pick`), the program maps (acc, E) to ([4]acc, [4]acc + E), and
+    the epilogue selects per lane element (`_win_select`). Every (digit,
+    accumulator at infinity, entry at infinity) once, on 2 x 8 lane
+    elements, over G1 and over G2."""
+    f2 = name == "g2_win_step"
+    comp, nc = (F2, 2) if f2 else ((), 1)
     rng = np.random.default_rng(2007)
     lead, S = (2,), 8
-    acc = [lazy(rng, lead, F2, S, t) for t in (1, 2, 1)]
-    table = [[lazy(rng, lead, F2, S, 1) for _ in range(3)] for _ in range(3)]
+    acc = [lazy(rng, lead, comp, S, t) for t in (1, 2, 1)]
+    table = [[lazy(rng, lead, comp, S, 1) for _ in range(3)] for _ in range(3)]
     dig = torch.zeros((*lead, 1, S), dtype=torch.int32)
     for e, (d, acc_inf, entry_inf) in enumerate(
             (d, a, b) for d in range(4) for a in (0, 1) for b in (0, 1)):
@@ -108,14 +119,39 @@ def test_win_step_program_with_epilogue_equals_plain_body():
             for t in table:
                 t[2][k, ..., s] = 0
     c = fp.consts("cpu")
-    want = chains._win_step_f2_body(c["folds"], c["topf"], *acc, *table[0], *table[1],
-                                    *table[2], dig)
-    entry = chains._win_pick(dig, *table, True)
-    out = coop.run_reference(coop.program(coop.slot("g2_win_step")),
+    body = chains._win_step_f2_body if f2 else chains._win_step_f1_body
+    want = body(c["folds"], c["topf"], *acc, *table[0], *table[1], *table[2], dig)
+    entry = chains._win_pick(dig, *table, f2)
+    out = coop.run_reference(coop.program(coop.slot(name)),
                              torch.cat([rows(a, lead) for a in (*acc, *entry)]),
                              c["folds"], c["topf"])
-    out = [unrows(out[2 * i : 2 * i + 2], lead, F2, S) for i in range(6)]
-    got = chains._win_select(dig, out[:3], entry, out[3:], True)
+    out = [unrows(out[nc * i : nc * (i + 1)], lead, comp, S) for i in range(6)]
+    got = chains._win_select(dig, out[:3], entry, out[3:], f2)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+def test_add_program_with_epilogue_equals_plain_body():
+    """jac_add_f2 as its kernel computes it: the program maps (P1, P2) to
+    the sum, and the epilogue selects per lane element (`_add_select`):
+    P1, P2, both or neither at infinity, each on 2 x 3 lane elements."""
+    rng = np.random.default_rng(2008)
+    lead, S = (2,), 3
+    p1 = [lazy(rng, lead, F2, S, t) for t in (1, 2, 1)]
+    p2 = [lazy(rng, lead, F2, S, t) for t in (1, 1, 2)]
+    for e, (inf1, inf2) in enumerate((a, b) for a in (0, 1) for b in (0, 1)):
+        k, s = divmod(e, S)
+        if inf1:
+            p1[2][k, ..., s] = 0
+        if inf2:
+            p2[2][k, ..., s] = 0
+    c = fp.consts("cpu")
+    want = J._add_f2_body(c["folds"], c["topf"], *p1, *p2)
+    out = coop.run_reference(coop.program(coop.slot("jac_add_f2")),
+                             torch.cat([rows(a, lead) for a in (*p1, *p2)]),
+                             c["folds"], c["topf"])
+    total = [unrows(out[2 * i : 2 * i + 2], lead, F2, S) for i in range(3)]
+    got = J._add_select(p1, p2, total, True)
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g, w)
 
@@ -172,11 +208,11 @@ def test_programs_fit_the_constant_bank():
     words = sum(coop.stats(slot)["words"] for slot in coop.PROGRAMS)
     assert words + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
-    # with the inversion chains and f12mul: 9,234 words of seven programs,
-    # 5,455 words of the bank left
-    assert (words, coop.TABLES) == (9234, 1695)
+    # with jac_add_f2 and g1_win_step: 9,961 words of nine programs, 4,728
+    # words of the bank left
+    assert (words, coop.TABLES) == (9961, 1695)
     fake = dict(coop.PROGRAMS)
-    fake[7], fake[8] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[9], fake[10] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -204,10 +240,12 @@ def test_header_mirrors_python():
         assert f"lh::coop::{key}_WARPS" in src and f"lh::coop::{key}_SLOT" in src
         assert not re.search(r"constexpr int \w*WARPS = \d", src)
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
-    # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; acc, E -> [4]acc, [4]acc + E;
-    # a, b -> a b; a, 1 -> a^(p-2)), as the sources' static_asserts check them
+    # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; P1, P2 -> P1 + P2; acc, E ->
+    # [4]acc, [4]acc + E over G1 and G2; a, b -> a b; a, 1 -> a^(p-2)), as
+    # the sources' static_asserts check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("cyc_sqr", 12, 12),
-                              ("jac_dbl_f2", 6, 6), ("g2_win_step", 12, 12),
+                              ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
+                              ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
                               ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1)):
         w = coop.program(coop.slot(name))
         assert (w[coop.H_INS], w[coop.H_OUTS]) == (n_in, n_out)
