@@ -14,14 +14,14 @@ needs one card. Phases, each with its seconds; any failure raises and exits
 non-zero before the last line:
 
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
-2. build: the ten CUDA libraries from csrc/ (one nvcc each, in
+2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the nine cooperative kernels (csrc/coop.cuh:
+   function; for the ten cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, cyc_sqr, jac_dbl_f2, jac_add_f2, g1_win_step,
-   g2_win_step, f12mul and the Fermat inversions inv_w4, inv_bin), their
-   ptxas line, the dynamic shared
-   memory their library launches them with (held equal to their program's
-   layout) and their program's shape.
+   g2_win_step, f12mul, the Fermat inversions inv_w4, inv_bin and
+   hash-to-G2's ratio_chain), their ptxas line, the dynamic shared
+   memory their library launches them with (held equal to their programs'
+   layout) and their programs' shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
    slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
@@ -63,9 +63,11 @@ non-zero before the last line:
    1024 and at S = 1 and 2 (every combination of digit, accumulator or P1
    at infinity and entry or P2 at infinity, a hold per lane or pair), in
    device ms and bound at S = 1, 2 and 1024, with the latency floor at S =
-   1; all 17 kernels
-   against theirs on
-   every operand layout a real bucket-128 verify meets, at S = 1, 2, the
+   1; ratio_chain against its plain body on seeded Fp2 operands (lane 0
+   zero) at the phase 3 shapes and S = 1, 2, 256, 2048 (buckets 128 and
+   1024 hash twice their width) and 4096, in device ms and bound at those
+   widths, with its latency floor at S = 1; all 18 kernels against theirs
+   on every operand layout a real bucket-128 verify meets, at S = 1, 2, the
    layout's own width and 2 x 128, each timed at the path's width. Then
    the BLS main path, counters zeroed just before and read just after:
    tests/test_tpu_backend.py's verdict matrix at bucket 128 through
@@ -75,10 +77,11 @@ non-zero before the last line:
    verified three times, True, and with one signature moved, False. Every
    kernel must have run there, with no plain body on a CUDA tensor, and
    the launches per verify must equal the reference's dispatch census op
-   by op at buckets 128 and 1024, each Fermat inversion's chain in one
-   launch (inv_w4, inv_bin). The wall per verify split into host
-   packing and device, the sets/s at 1024, and the device share of one
-   1024 verify from the profiler.
+   by op at buckets 128 and 1024, each Fermat inversion's chain and
+   hash-to-G2's ratio chain in one launch (inv_w4, inv_bin, ratio_chain).
+   The wall per verify split into host packing and device, the sets/s at
+   1024, and the device share of one 1024 verify from the profiler, with
+   each kernel's device ms in it.
 7. ladders, slice 4's paths, each run with the counters zeroed just
    before and read just after (no other launch, no plain body on a CUDA
    tensor): on the 1,024-set batch of phase 6 (bucket 1024, the last
@@ -163,15 +166,18 @@ KERNELS = {
     # `sqr` (fp.py:440-441) that chains.inv and fp.inv launched op by op
     "inv_w4": (CSRC + "inv.cu", "lighthouse_tpu/ops/lane/fp.py:441"),
     "inv_bin": (CSRC + "inv.cu", "lighthouse_tpu/ops/lane/fp.py:441"),
+    # hash-to-G2's ratio chain in one launch: the chain of `f2sqr` and
+    # `f2mul` (tower.py:217-218) that htc.ratio_chain launched op by op
+    "ratio_chain": (CSRC + "htc.cu", "lighthouse_tpu/ops/lane/htc.py:98"),
 }
 # the kernels of the KZG path (slices 1, 2 and 7), of the BLS main path
-# (slices 1-3 and 7) and of slice 4's paths (the ladders, the unfused
+# (slices 1-3, 7 and 9) and of slice 4's paths (the ladders, the unfused
 # Miller doubling, the microbenchmark)
 _PAIRING = ("reduce_light", "f2mul", "f2sqr", "f6mul", "f12mul", "miller_dbl_iter",
             "miller_add_iter", "cyc_sqr", "inv_bin")
 KZG_KERNELS = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1", *_PAIRING)
 BLS_KERNELS = (*KZG_KERNELS, "jac_dbl_f2", "jac_add_f2", "g1_win_step", "g2_win_step",
-               "inv_w4")
+               "inv_w4", "ratio_chain")
 SLICE4_KERNELS = ("norm3", "f12sqr", "f12mul_034", "ladder_step_f1", "ladder_step_f2",
                   "ubench_mul", "ubench_mul_chain")
 assert sorted(BLS_KERNELS + SLICE4_KERNELS) == sorted(KERNELS)
@@ -179,6 +185,9 @@ SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1")
 # the inversions, held on seeded operands at SHAPES and CHAIN_S
 CHAIN_KERNELS = ("inv_w4", "inv_bin")
 CHAIN_S = (1, 2, 1024)
+# the ratio chain, held on seeded operands at SHAPES and RATIO_S and timed
+# at RATIO_S: a verify runs it at twice the bucket's width (both draws)
+RATIO_S = (1, 2, 256, 2048, 4096)
 # every kernel of the pairing check, held on operands recorded from a real one
 RECORDED = ("mul", "canon_reduce", *_PAIRING)
 # launches per msm_g1 at a 4096-lane bucket, read off the code
@@ -189,13 +198,17 @@ def _chain_launches() -> dict:
     """The launches of `mul` and `sqr` each inversion replaces, read off
     the chains for p - 2 (ops/lane/chains.py pow_const_w4: the table's sqr
     and 3 stacked mul calls, then 4 sqr and 1 mul a window; ops/lane/fp.py
-    pow_const: a sqr on every bit, a mul on each set bit)."""
+    pow_const: a sqr on every bit, a mul on each set bit), and those of
+    `f2sqr` and `f2mul` the ratio chain replaces (ops/lane/htc.py: the
+    table's f2sqr, f2mul and stacked f2mul, then 2 f2sqr and 1 f2mul a
+    window)."""
     from lighthouse_tpu_torch.crypto.bls.params import P
-    from lighthouse_tpu_torch.ops.lane import chains
+    from lighthouse_tpu_torch.ops.lane import chains, htc
 
     e, windows = P - 2, len(chains.window_digits(P - 2))
     return {"inv_w4": {"sqr": 1 + 4 * windows, "mul": 3 + windows},
-            "inv_bin": {"sqr": e.bit_length(), "mul": bin(e).count("1")}}
+            "inv_bin": {"sqr": e.bit_length(), "mul": bin(e).count("1")},
+            "ratio_chain": {"f2sqr": 1 + 2 * htc._NW, "f2mul": 2 + htc._NW}}
 
 
 def _with_chains(per_op: dict, chains: dict) -> dict:
@@ -222,12 +235,12 @@ def check_launches() -> dict:
     return _with_chains(op_by_op, {"inv_bin": 1})
 
 
-# the cooperative kernels (csrc/coop.cuh; slices 5-8), by the library that
+# the cooperative kernels (csrc/coop.cuh; slices 5-9), by the library that
 # launches them: also held at the bucket-1024 width and read in device ms
 # at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
              "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
-             "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv"}
+             "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
 # the dependent multiply-adds of one warp product (a column's 36, a fold's
@@ -268,8 +281,11 @@ REFERENCE_PER_VERIFY = {
 def verify_launches(bucket: int) -> dict:
     """The reference's census with each Fermat inversion in one launch:
     3 chains.inv (_to_affine_g1 and _to_affine_g2 at the bucket's width,
-    finish_phase's _to_affine_g2 at 1 lane) and final_exp's fp.inv."""
-    return _with_chains(REFERENCE_PER_VERIFY[bucket], {"inv_w4": 3, "inv_bin": 1})
+    finish_phase's _to_affine_g2 at 1 lane) and final_exp's fp.inv; and
+    with hash-to-G2's ratio chain in one launch (1,095 / 1,134 launches at
+    buckets 128 / 1024)."""
+    return _with_chains(REFERENCE_PER_VERIFY[bucket],
+                        {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1})
 # launches on slice 4's paths: 64-bit G1 and G2 ladders (the G2 one with
 # the static |u| = 0xd201000000010000 on its chain, popcount 6) at bucket
 # 1024; the unfused doubling of a 128-lane Miller loop (63 iterations); the
@@ -329,6 +345,7 @@ def _ops_counts():
     f6mul = 6 * f2mul + 6 * rl + 34 * lazy
     f12mul = 3 * f6mul + 32 * lazy
     chains = _chain_launches()
+    ratio = chains["ratio_chain"]
     f12sqr = 2 * f6mul + 34 * lazy
     m034 = 13 * f2mul + 60 * lazy
     dbl_step = 6 * f2sqr + 5 * f2mul + 4 * mul + 8 * rl + 34 * lazy
@@ -360,6 +377,10 @@ def _ops_counts():
         # table stacks 13 products into 3 calls)
         "inv_w4": chains["inv_w4"]["sqr"] * sqr + (chains["inv_w4"]["mul"] + 10) * mul,
         "inv_bin": (chains["inv_bin"]["sqr"] - 1) * sqr + chains["inv_bin"]["mul"] * mul,
+        # the ratio chain: its f2sqr and f2mul calls (the table's stacked
+        # f2mul 9 of them: 1,369 products, 402 reduce_light) and the
+        # table's 3 conjugates
+        "ratio_chain": ratio["f2sqr"] * f2sqr + (ratio["f2mul"] + 8) * f2mul + 3 * lazy,
         "ubench_entry": ub_entry,
         "ubench_round": ub_round,
     }
@@ -397,7 +418,7 @@ def _rows(name: str) -> int:
 
 
 def _op(name: str):
-    from lighthouse_tpu_torch.ops.lane import chains, fp, jacobian as J, pairing as OP, tower
+    from lighthouse_tpu_torch.ops.lane import chains, fp, htc, jacobian as J, pairing as OP, tower
     from lighthouse_tpu_torch.tools import ubench_mul as U
 
     return {
@@ -412,7 +433,7 @@ def _op(name: str):
         "norm3": fp.norm3, "f12sqr": tower.f12sqr, "f12mul_034": tower.f12mul_034,
         "ladder_step_f1": J._ladder_step_f1, "ladder_step_f2": J._ladder_step_f2,
         "ubench_mul": U.mul, "ubench_mul_chain": U.mul_chain,
-        "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin,
+        "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin, "ratio_chain": htc.ratio_chain_op,
     }[name]
 
 
@@ -469,11 +490,11 @@ def phase_build() -> None:
     # the cooperative kernels' dynamic shared memory, as their libraries
     # launch them, against their programs' layout (coop.stats)
     for name, lib in COOP_LIBS.items():
-        st = coop.stats(coop.slot(name))
+        st = coop.kernel_stats(name)
         LAUNCH_SMEM[name] = getattr(kernels.libs()[lib], f"lh_{lib}_launch_smem")(coop.slot(name))
         if LAUNCH_SMEM[name] != st["smem_bytes"]:
             raise AssertionError(f"{name} launches with {LAUNCH_SMEM[name]} B of shared "
-                                 f"memory, its program lays out {st['smem_bytes']} B")
+                                 f"memory, its programs lay out {st['smem_bytes']} B")
         say("build", kernel=name, ptxas=json.dumps(PTXAS[name], separators=(",", ":")),
             launch_smem=LAUNCH_SMEM[name], coop=json.dumps(st, separators=(",", ":")))
 
@@ -507,6 +528,10 @@ def _inputs(rng, shape, kind, combos=None):
         return [t(canon() - canon())]
     if kind in CHAIN_KERNELS:  # the norm of an Fp2 (a sum of two products); lane 0 zero
         a = t(canon() + canon())
+        a[..., 0] = 0
+        return [a]
+    if kind == "ratio_chain":  # an Fp2 (f2mul's standard output); lane 0 zero
+        a = t(canon())
         a[..., 0] = 0
         return [a]
     lanes = torch.arange(S, device=dev)
@@ -797,17 +822,17 @@ def _sm_clock_mhz() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
 
 
-def _widths_ms(name: str, main) -> dict:
-    """A redesigned kernel's device ms (profiler) and bound at each width
-    of REDESIGNED_S, on the recorded operands (its call ms: path_call_ms),
-    and the latency floor of its program at one lane element: its stages
-    one after another, each at least one product's chain of dependent
-    multiply-adds (JOB_CHAIN_CYCLES) at the maximum SM clock."""
+def _widths_ms(name: str, main, widths=REDESIGNED_S) -> dict:
+    """A redesigned kernel's device ms (profiler) and bound at each of
+    `widths`, on the recorded operands (its call ms: path_call_ms),
+    and the latency floor of its programs at one lane element: their
+    stages one after another, each at least one product's chain of
+    dependent multiply-adds (JOB_CHAIN_CYCLES) at the maximum SM clock."""
     from lighthouse_tpu_torch.ops.lane import coop
 
-    stages = coop.stats(coop.slot(name))["stages"]
+    stages = coop.kernel_stats(name)["stages"]
     out = {"latency_floor_ms_S1": stages * JOB_CHAIN_CYCLES / (_sm_clock_mhz() * 1e3)}
-    for S in REDESIGNED_S:
+    for S in widths:
         args = [a[..., :S].contiguous() for a in main]
         ms, by = _kernel_ms(name, lambda: _op(name)(*args))
         outs = _op(name)(*args)
@@ -968,7 +993,8 @@ def _device_time(e) -> float:
 
 def _device_share(fn, wall_s: float) -> str:
     """Device (kernel) time of one call, from the profiler's trace, over
-    the same call's wall time measured without the profiler."""
+    the same call's wall time measured without the profiler; the eight
+    largest entries, and the device ms of each of the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -982,8 +1008,13 @@ def _device_share(fn, wall_s: float) -> str:
     top = sorted(events, key=lambda e: -_device_time(e))[:8]
     names = ",".join(f"{e.key.replace('(anonymous namespace)::', '')[:28]}:"
                      f"{_device_time(e) / 1e3:.2f}ms" for e in top)
+    ours = {}
+    for e in events:
+        if (m := re.search(r"\bk_\w+", e.key)):
+            ours[m.group()] = round(ours.get(m.group(), 0.0) + _device_time(e) / 1e3, 3)
     return (f"{dev_us / 1e6 / wall_s:.4f} device_ms={dev_us / 1e3:.2f} "
-            f"wall_ms={wall_s * 1e3:.1f} top={names}")
+            f"wall_ms={wall_s * 1e3:.1f} top={names} "
+            f"kernels_ms={json.dumps(ours, separators=(',', ':'))}")
 
 
 def phase_e2e() -> dict:
@@ -1198,6 +1229,25 @@ def _seeded_bls_holds(rng, out: dict) -> None:
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
+def _ratio_chain_holds(rng, out: dict) -> None:
+    """ratio_chain against its plain body on seeded Fp2 operands (lane 0
+    zero) at the phase 3 shapes and RATIO_S, timed at S=4096 and in device
+    ms and bound at RATIO_S."""
+    name = "ratio_chain"
+    max_err = 0
+    for shape in SHAPES + [(36, S) for S in RATIO_S if S != SHAPES[0][-1]]:
+        args = _inputs(rng, (*shape[:-2], 2, *shape[-2:]), name)
+        max_err = max(max_err, _hold(name, args, str(shape)))
+        if shape == SHAPES[0]:
+            timing, main = _time(name, args, plain_reps=2), args
+    timing.update(_widths_ms(name, main, RATIO_S))
+    out[name] = dict(max_abs_err=max_err, **timing)
+    say("bls", kernel=name, equal="yes", tolerance="exact(torch.equal)",
+        shapes="S=4096,2x128,S=4097," + ",".join(f"S={S}" for S in RATIO_S[:-1]),
+        operands="seeded(standard Fp2, lane 0 zero)",
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+
+
 def _verify_matrix(rng, card: str) -> dict:
     """tests/test_tpu_backend.py's cases through the front with
     backend="cuda", each against backend="cpu" on the same scalars. Returns
@@ -1273,6 +1323,7 @@ def phase_bls(card: str) -> tuple:
     rng = np.random.default_rng(SEED + 3)
     out = {}
     _seeded_bls_holds(rng, out)
+    _ratio_chain_holds(rng, out)
 
     # every kernel of a bucket-128 verify, on the operands it met there
     sets5, rs5 = _make_sets(5), _scalars(rng, 5)

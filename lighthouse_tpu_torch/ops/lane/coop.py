@@ -11,8 +11,8 @@ barrier ends each stage.
 The programs are traced here from the plain bodies themselves
 (pairing._dbl_iter_body, pairing._cyc_sqr_body, jacobian._dbl_f2_body,
 chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
-fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1): run on
-symbolic rows,
+fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
+htc._ratio_table_body, htc._ratio_win_body): run on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -33,6 +33,10 @@ element, so the select is uniform over the block and only picks which
 rows the block loads or writes (csrc/chains.cu `win_step`, csrc/jac_add.cu
 `k_jac_add_f2`).
 
+A program holds no loop either: a chain whose steps repeat is two
+programs, one run once and one run a step at a time by its kernel, which
+moves the step's operands between runs (CHAINS; csrc/htc.cu).
+
 Each job is scheduled at the earliest stage its operands allow, and its
 result takes the lowest shared-memory row that no later stage reads. The
 encoded program (int32 words) is compiled into the library's constant
@@ -52,7 +56,7 @@ import threading
 import numpy as np
 import torch
 
-from . import chains, fp, jacobian, pairing, tower
+from . import chains, fp, htc, jacobian, pairing, tower
 
 W = fp.W
 
@@ -89,11 +93,23 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # that mix 4 warps take 1.987 ms and 8 warps 2.032. g1_win_step's 18
 # stages hold 1-4 jobs: 25 rounds on 2 warps, 18 on 4; 4 warps time
 # faster at one lane (0.0209 against 0.0256 ms) and at 1,024, where all
-# 32 launches a verify run (0.0493 against 0.0505). Device ms from
+# 32 launches a verify run (0.0493 against 0.0505). The ratio chain's
+# two programs run in one block, so on one warp count: its window's stages
+# hold 2, 2, 3, 2 jobs, 9 rounds on 1 warp, 5 on 2, 4 on 3 and 4; its one
+# launch a verify runs at twice the bucket's width. On 1 / 2 / 3 / 4
+# warps: 2,048 lanes (bucket 1024) 3.749 / 4.137 / 3.768 / 3.807 ms, 256
+# (bucket 128) 1.645 / 0.992 / 0.866 / 0.967, one lane 1.640 / 0.977 /
+# 0.785 / 0.919: 3 warps (10 blocks an SM). Device ms from
 # tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
-            7: ("jac_add_f2", 4), 8: ("g1_win_step", 4)}
+            7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
+            10: ("ratio_win", 3)}
+# kernel -> its programs, where it runs more than one: the ratio chain
+# (csrc/htc.cu) runs the table's once, then the window's once a digit of
+# htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
+# the window's
+CHAINS = {"ratio_chain": ("ratio_table", "ratio_win")}
 
 
 FP, FP2, FP12 = (), (2,), (2, 3, 2)
@@ -311,13 +327,22 @@ def program(slot: int) -> np.ndarray:
         "jac_add_f2": (jacobian._add_core_f2, (FP2,) * 6),
         # acc, E -> [4]acc, [4]acc + E (no selection)
         "g1_win_step": (chains._win_core_f1, (FP,) * 6),
+        # w, 1 -> the ratio chain's 16 entries; acc, E -> acc^4 E
+        "ratio_table": (htc._ratio_table_body, (FP2, FP2)),
+        "ratio_win": (htc._ratio_win_body, (FP2, FP2)),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 
 
 def slot(name: str) -> int:
-    """The program slot of kernel `name`."""
+    """The program slot of kernel `name` (of a chain kernel: its first)."""
+    name = programs_of(name)[0]
     return next(k for k, (n, _) in PROGRAMS.items() if n == name)
+
+
+def programs_of(name: str) -> tuple:
+    """The programs kernel `name` runs."""
+    return CHAINS.get(name, (name,))
 
 
 def stats(slot: int) -> dict:
@@ -337,12 +362,31 @@ def stats(slot: int) -> dict:
     )
 
 
+def kernel_stats(name: str) -> dict:
+    """`stats` of kernel `name`: its program's, or the ratio chain's over
+    its table run and its window runs, on the rows of both programs and
+    the entries."""
+    if name not in CHAINS:
+        return stats(slot(name))
+    table, win = (stats(slot(p)) for p in programs_of(name))
+    n, nw = len(htc._WIN_IDX), table["warps"]
+    rows = max(table["rows"], win["rows"] + int(program(slot(name))[H_OUTS]))
+    return dict(
+        stages=table["stages"] + n * win["stages"], jobs=table["jobs"] + n * win["jobs"],
+        rows=rows, warps=nw, products=table["products"] + n * win["products"],
+        rounds=table["rounds"] + n * win["rounds"],
+        smem_bytes=4 * (TABLES + nw * SCRATCH + rows * W),
+        words=table["words"] + win["words"] + n,
+    )
+
+
 def header() -> str:
     """The generated header the cooperative kernels include (kernels.build
     writes it into the build directory): per program, its slot, warps per
     lane element, rows, inputs and outputs as constexprs and its words as
     a `__constant__` array."""
-    words = sum(len(program(slot)) for slot in PROGRAMS)
+    digits = [int(d) for d in htc._WIN_IDX]
+    words = sum(len(program(slot)) for slot in PROGRAMS) + len(digits)
     if words + TABLES > BANK_WORDS:  # fp_lane.cuh's c_folds, c_topfm beside them
         raise ValueError(f"programs of {words} words overflow the constant bank")
     lines = ["// Generated from lighthouse_tpu_torch/ops/lane/coop.py; do not edit.",
@@ -357,7 +401,12 @@ def header() -> str:
         lines += ["    " + ", ".join(map(str, w[i : i + 12].tolist())) + ","
                   for i in range(0, len(w), 12)]
         lines.append("};")
-    lines += ["", "}  // namespace coop", "}  // namespace lh", ""]
+    # the ratio chain's window digits (csrc/htc.cu), most significant first
+    lines += ["", f"constexpr int RATIO_WINDOWS = {len(digits)};",
+              f"static __constant__ int c_ratio_idx[{len(digits)}] = {{"]
+    lines += ["    " + ", ".join(map(str, digits[i : i + 24])) + ","
+              for i in range(0, len(digits), 24)]
+    lines += ["};", "", "}  // namespace coop", "}  // namespace lh", ""]
     return "\n".join(lines)
 
 

@@ -1,9 +1,9 @@
 """Lane-major G2 map-to-curve (SSWU + 3-isogeny + cofactor clearing).
 
 Port of lighthouse_tpu/ops/lane/htc.py, over the port's kernels: every Fp2
-product and square is `f2mul`/`f2sqr`, the light reductions `reduce_light`,
-the G2 group ops `jac_dbl_f2`/`jac_add_f2`. The number theory is the
-reference's:
+product and square outside the ratio chain is `f2mul`/`f2sqr`, the light
+reductions `reduce_light`, the G2 group ops `jac_dbl_f2`/`jac_add_f2`. The
+number theory is the reference's:
 
 - Inversion-free SSWU: x is carried as the fraction xn/xd, and the square
   root is taken on gn/xd^3 directly: the candidate
@@ -14,6 +14,9 @@ reference's:
   2-bit windows over a 16-entry table.
 - Budroni-Pintore clearing with the two static |u| ladders
   (jacobian.scalar_mul_static).
+
+The ratio chain is one kernel, `ratio_chain` (csrc/htc.cu), whose
+cooperative programs are traced from its plain body's two parts.
 
 The host feed (SHA-256 expand_message_xmd) is crypto/bls/hash_to_curve.py;
 `pack_draws` ships the [2, W, n] Fp2 draws.
@@ -104,35 +107,64 @@ def _bc(const, S):
 # ------------------------------------------------- ratio exponent chain
 
 
-def ratio_chain(w):
-    """w^((q-9)/16) = conj(w)^e1 * w^e0: one 381-bit Shamir chain.
-
-    MSB-first joint 2-bit windows; per step acc = acc^4 * table[idx],
-    where table[4*i + j] = conj(w)^i * w^j (16 entries, 9 products in one
-    stacked f2mul)."""
-    S = w.shape[-1]
-    w1 = fp.norm3_x(w, site="htc.ratio_chain.entry")
-    w2 = f2sqr(w1)
-    w3 = f2mul(w2, w1)
+def _ratio_table_body(folds, topf, w, one):
+    """The chain's 16 entries table[4*i + j] = conj(w)^i * w^j, stacked
+    [..., 16, 2, W, S]: w^2 (one f2sqr), w^3 (one f2mul), the 9 products
+    in one stacked f2mul. `one`: entry 0 (a row of the table program; the
+    kernel writes it)."""
+    w1 = fp._norm(w, topf, "htc.ratio_chain.entry")
+    w2 = tower._f2sqr_body(folds, topf, w1)
+    w3 = tower._f2mul_body(folds, topf, w2, w1)
     cw1, cw2, cw3 = (tower.f2conj(v) for v in (w1, w2, w3))
     aa = torch.stack([cw1, cw1, cw1, cw2, cw2, cw2, cw3, cw3, cw3], 0)
     bb = torch.stack([w1, w2, w3] * 3, 0)
-    pr = f2mul(aa, bb)  # [9, 2, W, S]
-    one = _bc(_consts(w.device)["ONE2"], S).expand(w1.shape)
-    table = torch.stack(
+    pr = tower._f2mul_body(folds, topf, aa, bb)  # [9, ..., 2, W, S]
+    return torch.stack(
         [
             one, w1, w2, w3,
             cw1, pr[0], pr[1], pr[2],
             cw2, pr[3], pr[4], pr[5],
             cw3, pr[6], pr[7], pr[8],
         ],
-        0,
-    )  # [16, 2, W, S]
-    acc = one
+        -4,
+    )
+
+
+def _ratio_win_body(folds, topf, acc, e):
+    """One window of the chain: acc^4 * e (two f2sqr, one f2mul)."""
+    acc = tower._f2sqr_body(folds, topf, tower._f2sqr_body(folds, topf, acc))
+    return tower._f2mul_body(folds, topf, acc, e)
+
+
+def _ratio_chain_body(folds, topf, w, one=None):
+    """w^((q-9)/16), the plain version of the `ratio_chain` kernel: the
+    table, then MSB-first one window a digit of _WIN_IDX from entry 0.
+    It makes the Fp2 products and squares in the order the reference's
+    chain launches `f2sqr` and `f2mul`, so the limbs are the reference's.
+    The kernel (csrc/htc.cu) runs the programs traced from
+    `_ratio_table_body` and `_ratio_win_body` (ops/lane/coop.py)."""
+    if one is None:
+        one = _bc(_consts(w.device)["ONE2"], w.shape[-1]).expand(w.shape)
+    table = _ratio_table_body(folds, topf, w, one)
+    acc = table[..., 0, :, :, :]
     for idx in _WIN_IDX:
-        acc = f2sqr(f2sqr(acc))
-        acc = f2mul(acc, table[idx])
+        acc = _ratio_win_body(folds, topf, acc, table[..., idx, :, :, :])
     return acc
+
+
+# one launch per chain: 1,369 Fp products and 402 reduce_light on a block
+# of warps per lane element (csrc/htc.cu)
+ratio_chain_op = fp.KernelOp(_ratio_chain_body, "ratio_chain", "lh_ratio_chain")
+
+
+def ratio_chain(w):
+    """w^((q-9)/16) = conj(w)^e1 * w^e0: one 381-bit Shamir chain, in one
+    kernel (`ratio_chain`).
+
+    MSB-first joint 2-bit windows; per step acc = acc^4 * table[idx],
+    where table[4*i + j] = conj(w)^i * w^j (16 entries, 9 products in one
+    stacked f2mul)."""
+    return ratio_chain_op(w)
 
 
 # ---------------------------------------------------------------- sgn0

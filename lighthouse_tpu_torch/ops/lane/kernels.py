@@ -46,6 +46,7 @@ SOURCES = {
     "chains": "chains.cu",        # g1_win_step, g2_win_step
     "ladder": "ladder.cu",        # ladder_step_f1, ladder_step_f2
     "inv": "inv.cu",              # inv_w4, inv_bin
+    "htc": "htc.cu",              # ratio_chain
     # the Fp-mul microbenchmark: built here with the rest, bound and given
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
@@ -91,6 +92,8 @@ ENTRIES = {
     # a -> a^(p-2): the windowed and the binary Fermat chain
     "lh_inv_w4": ("inv", (FP,), (FP,)),
     "lh_inv_bin": ("inv", (FP,), (FP,)),
+    # w -> w^((p^2 - 9) / 16): hash-to-G2's ratio chain
+    "lh_ratio_chain": ("htc", (FP2,), (FP2,)),
 }
 
 NVCC_FLAGS = [
@@ -126,7 +129,7 @@ def nvcc_path() -> str:
 
 # the header of the cooperative kernels' programs (ops/lane/coop.py), which
 # build() writes into the build directory for csrc/miller.cu, jac_dbl.cu,
-# jac_add.cu, chains.cu, tower.cu and inv.cu
+# jac_add.cu, chains.cu, tower.cu, inv.cu and htc.cu
 PROGRAMS_H = "coop_programs.h"
 
 

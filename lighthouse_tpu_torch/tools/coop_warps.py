@@ -13,10 +13,12 @@ Run on a machine with a CUDA card:
 
     python -m lighthouse_tpu_torch.tools.coop_warps g2_win_step --S 1024 --warps 4 8
     python -m lighthouse_tpu_torch.tools.coop_warps f12mul --S 1 512 --warps 8 16 32
+    python -m lighthouse_tpu_torch.tools.coop_warps ratio_chain --S 1 256 2048 --warps 1 2 4
 
 Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, jac_add_f2, g1_win_step,
-g2_win_step, f12mul, inv_w4, inv_bin. Several widths (--S) share one build
-per warp count. The seeded operands put no point at infinity.
+g2_win_step, f12mul, inv_w4, inv_bin, ratio_chain (its two programs on
+one warp count). Several widths (--S) share one build per warp count.
+The seeded operands put no point at infinity.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.lane import chains, coop, fp, jacobian as J, kernels, pairing, tower
+from ..ops.lane import chains, coop, fp, htc, jacobian as J, kernels, pairing, tower
 
 REPS = 50
 
@@ -40,19 +42,22 @@ def _ops():
     return {"miller_dbl_iter": pairing._dbl_iter, "cyc_sqr": pairing.cyclotomic_sqr,
             "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
             "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
-            "f12mul": tower.f12mul, "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin}
+            "f12mul": tower.f12mul, "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin,
+            "ratio_chain": htc.ratio_chain_op}
 
 
 @contextlib.contextmanager
 def warps(name: str, nw: int):
-    """coop.PROGRAMS with `nw` warps per lane element for kernel `name`."""
-    slot = coop.slot(name)
-    old = coop.PROGRAMS[slot]
-    coop.PROGRAMS[slot] = (old[0], nw)
+    """coop.PROGRAMS with `nw` warps per lane element for kernel `name`
+    (for every program it runs)."""
+    slots = [coop.slot(p) for p in coop.programs_of(name)]
+    old = {s: coop.PROGRAMS[s] for s in slots}
+    for s in slots:
+        coop.PROGRAMS[s] = (old[s][0], nw)
     try:
         yield
     finally:
-        coop.PROGRAMS[slot] = old
+        coop.PROGRAMS.update(old)
 
 
 def operands(name: str, S: int, seed: int = 6) -> list:
@@ -103,7 +108,7 @@ def run(name: str, S: int, counts, out=print) -> list:
     for nw in counts:
         with warps(name, nw):
             so = kernels.bind(lib, kernels.load(lib, fp.FOLDS_NP, fp.TOPFM_NP, kernels.build()))
-            st = coop.stats(coop.slot(name))
+            st = coop.kernel_stats(name)
             smem = getattr(so, f"lh_{lib}_launch_smem")(coop.slot(name))
         got = kernels.launch(op.symbol, args, lib=so)
         torch.cuda.synchronize()

@@ -5,8 +5,9 @@ policy rejections, one valid 2-set verdict through `local_phase` +
 `finish_phase` on the packed batch cut to its 2 real lanes (against the
 `cpu` backend), the bounded record of verify times, the launches per
 verify at buckets 128 and 1024 equal to the reference's dispatch census op
-by op, each Fermat inversion's chain in one launch (with shape-only
-stand-ins for the kernels, as the reference's census runs).
+by op, each Fermat inversion's chain and hash-to-G2's ratio chain in one
+launch (with shape-only stand-ins for the kernels, as the reference's
+census runs).
 `crypto_heavy`: `local_phase` limb-equal to the reference's at 4 lanes, the
 verdict matrix of tests/test_tpu_backend.py on cut lanes, and one batch
 through the reference's own seam with the port registered as its "cuda"
@@ -30,7 +31,7 @@ from lighthouse_tpu_torch.crypto.bls import params
 from lighthouse_tpu_torch.crypto.bls.backends import cpu as CPU
 from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
 from lighthouse_tpu_torch.crypto.bls.keys import SecretKey, Signature, SignatureSet
-from lighthouse_tpu_torch.ops.lane import chains, fp, kernels
+from lighthouse_tpu_torch.ops.lane import chains, fp, htc, kernels
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -53,14 +54,17 @@ REFERENCE = {
 # as `inv_w4`, `fp.inv` (pow_const: a sqr on every bit, a mul on each set
 # bit) as `inv_bin`. A verify makes 3 `chains.inv` (_to_affine_g1 and
 # _to_affine_g2 at the bucket's width, finish_phase's _to_affine_g2 at 1
-# lane) and 1 `fp.inv` (final_exp's f12inv).
+# lane) and 1 `fp.inv` (final_exp's f12inv). Hash-to-G2's ratio chain
+# (the table's f2sqr, its f2mul and its stacked f2mul, then 2 f2sqr and 1
+# f2mul a window) is one launch too, `ratio_chain`, once a verify.
 _E = params.P - 2
 CHAIN_LAUNCHES = {
     "inv_w4": {"sqr": 1 + 4 * len(chains.window_digits(_E)),
                "mul": 3 + len(chains.window_digits(_E))},
     "inv_bin": {"sqr": _E.bit_length(), "mul": bin(_E).count("1")},
+    "ratio_chain": {"f2sqr": 1 + 2 * htc._NW, "f2mul": 2 + htc._NW},
 }
-CHAINS_PER_VERIFY = {"inv_w4": 3, "inv_bin": 1}
+CHAINS_PER_VERIFY = {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1}
 
 
 def _with_chains(reference: dict) -> dict:
@@ -221,11 +225,16 @@ def _census(S: int) -> Counter:
 
 @pytest.mark.parametrize("bucket", [128, 1024])
 def test_launches_per_verify_equal_reference_census(bucket):
-    """The reference's census op by op, each inversion's chain in one
-    launch: of its 1,539 sqr and 543 mul, 3 sqr and 17 mul are left."""
+    """The reference's census op by op, each inversion's chain and the
+    ratio chain in one launch: of its 1,539 sqr and 543 mul, 3 sqr and 17
+    mul are left; of its f2sqr and f2mul, 45 and 165 (bucket 128), 51 and
+    183 (bucket 1024); 1,095 and 1,134 launches in all."""
     counts = _census(bucket)
     assert dict(counts) == CENSUS[bucket]
     assert (counts["sqr"], counts["mul"]) == (3, 17)
+    assert (counts["f2sqr"], counts["f2mul"], counts["ratio_chain"]) == {
+        128: (45, 165, 1), 1024: (51, 183, 1)}[bucket]
+    assert sum(counts.values()) == {128: 1095, 1024: 1134}[bucket]
     budgets = json.loads((REPO / "tests" / "budgets" / "kernel_costs.json").read_text())
     ref_total = budgets["buckets"][str(bucket)]["kernel_dispatches"]
     assert sum(REFERENCE[bucket].values()) == ref_total

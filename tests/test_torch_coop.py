@@ -1,16 +1,19 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
 `miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`,
-`g2_win_step`, `f12mul` and the inversion chains `inv_w4` and `inv_bin`
-run on the card as programs of warp jobs (csrc/coop.cuh), traced from
-their plain bodies. Here each encoded program is executed on CPU tensors
+`g2_win_step`, `f12mul`, the inversion chains `inv_w4` and `inv_bin` and
+hash-to-G2's ratio chain (two programs, its table and its window) run on
+the card as programs of warp jobs (csrc/coop.cuh), traced from their
+plain bodies. Here each encoded program is executed on CPU tensors
 job by job with the plain Fp bodies, stage by stage with its row reuse,
 and held limb for limb against the plain body it was traced from; the
 window steps' programs (their arithmetic without the selects), over G1
 and G2, with their block-uniform epilogue against the whole plain body,
 on every digit and infinity on either side, and `jac_add_f2`'s with its
 epilogue against `_add_f2_body`, with P1, P2, both or neither at
-infinity.
+infinity; the ratio chain's table program, then its window program once
+a digit, against `_ratio_chain_body` and the op-by-op chain, whose value
+is the host's w^((p^2 - 9) / 16).
 A square is a job of its own kind, not a product of an operand with
 itself (the two differ in limbs). The tracer refuses a select; the
 generated header that compiles the programs in, the word layout, and the
@@ -27,7 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from lighthouse_tpu_torch.ops.lane import chains, coop, fp, jacobian as J, kernels, pairing, tower
+from lighthouse_tpu_torch.crypto.bls import fields as FF
+from lighthouse_tpu_torch.crypto.bls.params import P
+from lighthouse_tpu_torch.ops.lane import (
+    chains, coop, fp, htc, jacobian as J, kernels, pairing, tower,
+)
 from lighthouse_tpu_torch.tools import coop_warps
 
 CSRC = Path(coop.__file__).resolve().parents[2] / "csrc"
@@ -50,12 +57,15 @@ BODIES = {
     # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
     "inv_w4": (chains._inv_w4_body, [(), ()], [2, ONE], 494),
     "inv_bin": (fp._inv_bin_body, [(), ()], [2, ONE], 609),
+    # the ratio chain: w, 1 -> its 16 entries; acc, E -> acc^4 E
+    "ratio_table": (htc._ratio_table_body, [F2, F2], [1, ONE], 32),
+    "ratio_win": (htc._ratio_win_body, [F2, F2], [1, 1], 7),
 }
 # the kernels' sources, by the program each launches
 SOURCES = {"miller_dbl_iter": "miller.cu", "cyc_sqr": "miller.cu",
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
-           "inv_bin": "inv.cu"}
+           "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu"}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -156,6 +166,60 @@ def test_add_program_with_epilogue_equals_plain_body():
         assert torch.equal(g, w)
 
 
+def _ratio_chain_by_launches(w):
+    """The chain as `ratio_chain` ran it before it was one kernel: one
+    `f2sqr` or `f2mul` call at a time (here their plain bodies)."""
+    w1 = fp.norm3_x(w, site="htc.ratio_chain.entry")
+    w2 = tower.f2sqr(w1)
+    w3 = tower.f2mul(w2, w1)
+    cw1, cw2, cw3 = (tower.f2conj(v) for v in (w1, w2, w3))
+    pr = tower.f2mul(torch.stack([cw1, cw1, cw1, cw2, cw2, cw2, cw3, cw3, cw3]),
+                     torch.stack([w1, w2, w3] * 3))
+    one = torch.stack([fp.one_like(w1[..., 0, :, :]), torch.zeros_like(w1[..., 0, :, :])], -3)
+    table = [one, w1, w2, w3, cw1, *pr[0:3], cw2, *pr[3:6], cw3, *pr[6:9]]
+    acc = one
+    for idx in htc._WIN_IDX:
+        acc = tower.f2mul(tower.f2sqr(tower.f2sqr(acc)), table[idx])
+    return acc
+
+
+def test_ratio_chain_programs_equal_plain_body():
+    """csrc/htc.cu's schedule on the CPU: the table program once, then the
+    window program once a digit of _WIN_IDX, each window's acc the last
+    output and its E the digit's entry, from entry 0; limb for limb
+    `_ratio_chain_body`, which equals the chain launched op by op."""
+    rng = np.random.default_rng(9)
+    lead, S = (2,), 3
+    w = lazy(rng, lead, F2, S, 1)
+    c = fp.consts("cpu")
+    want = htc._ratio_chain_body(c["folds"], c["topf"], w)
+    assert torch.equal(want, _ratio_chain_by_launches(w))
+    one = torch.stack([fp.one_like(w[..., 0, :, :]), torch.zeros_like(w[..., 0, :, :])], -3)
+    table = coop.run_reference(coop.program(coop.slot("ratio_table")),
+                               torch.cat([rows(w, lead), rows(one, lead)]), c["folds"], c["topf"])
+    win = coop.program(coop.slot("ratio_win"))
+    acc = table[0:2]
+    for idx in htc._WIN_IDX:
+        acc = coop.run_reference(win, torch.cat([acc, table[2 * idx : 2 * idx + 2]]),
+                                 c["folds"], c["topf"])
+    assert torch.equal(acc, rows(want, lead))
+
+
+def test_ratio_chain_equals_host_power():
+    """`ratio_chain` on CPU tensors (its plain body) is w^((p^2 - 9) / 16),
+    the host's f2pow, on 3 lanes of 2 x 3 lazy operands."""
+    rng = np.random.default_rng(10)
+    lead, S = (2,), 3
+    w = lazy(rng, lead, F2, S, 1)
+    got = fp.canonical(htc.ratio_chain(w))
+    e = (P * P - 9) // 16
+    for k in range(lead[0]):
+        for s in range(S):
+            a = tuple(fp.from_limbs(w[k, i, :, s].numpy()) % P for i in range(2))
+            want = FF.f2pow(a, e)
+            assert tuple(fp.from_limbs(got[k, i, :, s].numpy()) for i in range(2)) == want
+
+
 def test_square_is_a_job_kind_of_its_own():
     """`fp._sqr_fn` traces as one SQR job (one entry norm at sqr.entry),
     not as MUL(a, a) (two entry norms at mul.entry_*): on a 3-unit lazy
@@ -204,15 +268,18 @@ def test_program_shape(name):
 
 def test_programs_fit_the_constant_bank():
     """Every library that includes the generated header holds all programs
-    in its constant bank, beside fp_lane.cuh's FOLDS and TOPFM."""
+    and the ratio chain's digits in its constant bank, beside fp_lane.cuh's
+    FOLDS and TOPFM."""
     words = sum(coop.stats(slot)["words"] for slot in coop.PROGRAMS)
-    assert words + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
+    digits = len(htc._WIN_IDX)
+    assert words + digits + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
-    # with jac_add_f2 and g1_win_step: 9,961 words of nine programs, 4,728
-    # words of the bank left
-    assert (words, coop.TABLES) == (9961, 1695)
+    # with the ratio chain's table (399 words) and window (68), and its 191
+    # digits: 10,428 words of eleven programs, 12,314 of the bank's words
+    # with the digits and the tables, 4,070 left
+    assert (words, digits, coop.TABLES) == (10428, 191, 1695)
     fake = dict(coop.PROGRAMS)
-    fake[9], fake[10] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[11], fake[12] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -241,12 +308,14 @@ def test_header_mirrors_python():
         assert not re.search(r"constexpr int \w*WARPS = \d", src)
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
     # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; P1, P2 -> P1 + P2; acc, E ->
-    # [4]acc, [4]acc + E over G1 and G2; a, b -> a b; a, 1 -> a^(p-2)), as
-    # the sources' static_asserts check them
+    # [4]acc, [4]acc + E over G1 and G2; a, b -> a b; a, 1 -> a^(p-2); w, 1
+    # -> 16 entries; acc, E -> acc^4 E), as the sources' static_asserts
+    # check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("cyc_sqr", 12, 12),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
-                              ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1)):
+                              ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1),
+                              ("ratio_table", 4, 32), ("ratio_win", 4, 2)):
         w = coop.program(coop.slot(name))
         assert (w[coop.H_INS], w[coop.H_OUTS]) == (n_in, n_out)
 
@@ -263,6 +332,26 @@ def test_generated_header_holds_the_program(name):
     assert [int(v) for v in m.group(2).replace(",", " ").split()] == w.tolist()
 
 
+def test_header_holds_the_ratio_digits():
+    """csrc/htc.cu's window digits: the generated `c_ratio_idx` is
+    htc._WIN_IDX, most significant first, and RATIO_WINDOWS its length."""
+    text = coop.header()
+    m = re.search(r"__constant__ int c_ratio_idx\[(\d+)\] = \{([^}]*)\};", text)
+    digits = [int(v) for v in m.group(2).replace(",", " ").split()]
+    assert digits == [int(d) for d in htc._WIN_IDX] and int(m.group(1)) == len(digits) == 191
+    assert _constexprs(text)["RATIO_WINDOWS"] == 191
+
+
+def test_ratio_chain_kernel_stats():
+    """The ratio chain's kernel: its table run and 191 window runs (1,771
+    jobs: 1,369 products, 402 reduce_light; 769 stages), on the table
+    program's 41 rows, which hold the window's 7 and the 32 entry rows."""
+    st = coop.kernel_stats("ratio_chain")
+    assert (st["jobs"], st["products"], st["stages"], st["rows"]) == (1771, 1369, 769, 41)
+    assert st["smem_bytes"] == 4 * (coop.TABLES + st["warps"] * coop.SCRATCH + 41 * fp.W)
+    assert coop.slot("ratio_chain") == coop.slot("ratio_table")
+
+
 def test_tracing_leaves_other_callers_the_plain_bodies():
     mul_body, sqr_fn, rl_body = fp._mul_body, fp._sqr_fn, fp._reduce_light_body
     c = fp.consts("cpu")
@@ -276,17 +365,20 @@ def test_tracing_leaves_other_callers_the_plain_bodies():
     assert torch.equal(got[2], rl_body(a, c["folds"], c["topf"]))
 
 
-def test_warps_override_builds_apart_and_restores():
+@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain"])
+def test_warps_override_builds_apart_and_restores(name):
     """tools/coop_warps.py's variants: another warp count writes another
     header, so its library builds in a directory of its own; the count
-    comes back after."""
-    slot = coop.slot("g2_win_step")
-    default, before = coop.PROGRAMS[slot], kernels.build_dir()
-    with coop_warps.warps("g2_win_step", 8):
-        assert coop.stats(slot)["warps"] == 8
-        assert "constexpr int G2_WIN_STEP_WARPS = 8;" in coop.header()
+    comes back after. The ratio chain's two programs move together."""
+    slots = [coop.slot(p) for p in coop.programs_of(name)]
+    default, before = [coop.PROGRAMS[s] for s in slots], kernels.build_dir()
+    with coop_warps.warps(name, 8):
+        assert coop.kernel_stats(name)["warps"] == 8
+        for s in slots:
+            assert coop.stats(s)["warps"] == 8
+            assert f"constexpr int {coop.PROGRAMS[s][0].upper()}_WARPS = 8;" in coop.header()
         assert kernels.build_dir() != before
-    assert coop.PROGRAMS[slot] == default and kernels.build_dir() == before
+    assert [coop.PROGRAMS[s] for s in slots] == default and kernels.build_dir() == before
 
 
 def test_warps_tool_compares_one_output_and_several():

@@ -6,6 +6,9 @@ are pinned equal to the reference's (through `convert`); the vectorized
 packer is bit-identical to `fp.pack` and to the reference's; the draws the
 host feeds the device equal the reference's limb for limb; and the lane map
 `hash_draws_to_g2` of two messages equals the host `hash_to_g2`.
+`crypto_heavy`: the ratio chain (one kernel in the port, `f2sqr` and
+`f2mul` launches in a scan in the reference) limb for limb against the
+reference's, jitted on CPU XLA.
 """
 
 import numpy as np
@@ -25,6 +28,22 @@ from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
 from lighthouse_tpu_torch.ops.lane import fastpack, fp, htc, jacobian as J
 
 MSGS = [b"", b"abc", b"msg-1"]
+
+
+@pytest.mark.crypto_heavy
+def test_ratio_chain_equals_reference_limb_for_limb():
+    """`htc.ratio_chain` (its plain body on CPU tensors) against the
+    reference's `ratio_chain` on the same seeded standard operands, 3 lanes
+    and lane 0 zero; the reference's scan takes ~12 s to compile."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(98)
+    w = rng.integers(0, 1 << fp.B, (2, fp.W, 3), dtype=np.int32)
+    w[..., 0] = 0
+    got = htc.ratio_chain(torch.from_numpy(w))
+    want = np.asarray(jax.jit(ref_htc.ratio_chain)(jnp.asarray(w)))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
 @pytest.fixture(autouse=True, scope="module")
