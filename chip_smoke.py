@@ -16,10 +16,10 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the ten cooperative kernels (csrc/coop.cuh:
-   miller_dbl_iter, cyc_sqr, jac_dbl_f2, jac_add_f2, g1_win_step,
-   g2_win_step, f12mul, the Fermat inversions inv_w4, inv_bin and
-   hash-to-G2's ratio_chain), their ptxas line, the dynamic shared
+   function; for the twelve cooperative kernels (csrc/coop.cuh:
+   miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f2, jac_add_f2,
+   g1_win_step, g2_win_step, f2mul, f12mul, the Fermat inversions inv_w4,
+   inv_bin and hash-to-G2's ratio_chain), their ptxas line, the dynamic shared
    memory their library launches them with (held equal to their programs'
    layout) and their programs' shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
@@ -39,11 +39,14 @@ non-zero before the last line:
    operand layout each kernel met there (shapes, and broadcast views such
    as frob2's gamma table or the first iteration's expanded 1), each at
    S = 1, 2, 4097 and at 128 lanes with a leading stack of 2 (the
-   cooperative miller_dbl_iter, cyc_sqr, f12mul and inv_bin also at
-   S = 1024, the BLS bucket-1024 width). All torch.equal. Each timed at
-   S = 4096 (profiler device ms, CUDA-event call ms, plain ms, bound) and
-   at the pairing path's own width; the cooperative ones also in device
-   ms and bound at S = 1, 2 and 1024. The ripple glue of
+   cooperative miller_dbl_iter, miller_add_iter, cyc_sqr, f2mul, f12mul
+   and inv_bin also at S = 1024, the BLS bucket-1024 width, and f2mul at
+   S = 2048 and a stack of 4 x 2048, its widths in a bucket-1024 verify).
+   All torch.equal. Each timed at S = 4096 (profiler device ms,
+   CUDA-event call ms, plain ms, bound) and at the pairing path's own
+   width; the cooperative ones also in device ms and bound at S = 1, 2
+   and 1024 (f2mul also at 2048 and 4 x 2048, on one element of the
+   recorded stack). The ripple glue of
    canonical(); a small MSM against the host group law.
 4. pairing128: a 128-lane Miller loop against the host Miller loop on 4
    lanes; the product over 64 bilinear couples is 1, with one Q swapped it
@@ -81,7 +84,9 @@ non-zero before the last line:
    hash-to-G2's ratio chain in one launch (inv_w4, inv_bin, ratio_chain).
    The wall per verify split into host packing and device, the sets/s at
    1024, and the device share of one 1024 verify from the profiler, with
-   each kernel's device ms in it.
+   each kernel's device ms in it (`device_totals`: each device event
+   counted once, beside the sum over every profiler entry and the torch
+   glue's share).
 7. ladders, slice 4's paths, each run with the counters zeroed just
    before and read just after (no other launch, no plain body on a CUDA
    tensor): on the 1,024-set batch of phase 6 (bucket 1024, the last
@@ -105,7 +110,8 @@ non-zero before the last line:
    ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
    kernels' dynamic shared memory, as each library reports it; their device
-   ms and bound at S = 1, 2 and 1024 and the latency floor at S = 1);
+   ms and bound at S = 1, 2 and 1024, f2mul's also at 2048 and 4x2048, and
+   the latency floor at S = 1);
    9. the `ok` JSON line (last).
 """
 
@@ -235,14 +241,19 @@ def check_launches() -> dict:
     return _with_chains(op_by_op, {"inv_bin": 1})
 
 
-# the cooperative kernels (csrc/coop.cuh; slices 5-9), by the library that
+# the cooperative kernels (csrc/coop.cuh; slices 5-10), by the library that
 # launches them: also held at the bucket-1024 width and read in device ms
 # at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
              "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
-             "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc"}
+             "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
+             "miller_add_iter": "miller", "f2mul": "tower"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
+# f2mul's widths in a bucket-1024 verify beyond those: 2,048 lanes and a
+# stack of 4 x 2,048 (K, S); held there and read in device ms on one
+# element of the recorded stack (Fp2 operands [2, W, S])
+F2MUL_S = (*REDESIGNED_S, 2048, (4, 2048))
 # the dependent multiply-adds of one warp product (a column's 36, a fold's
 # 38), at 4 cycles each: a stage of a cooperative program at one lane
 # element takes at least this many cycles of the SM clock
@@ -794,24 +805,35 @@ def _layout(key) -> str:
                     for shape, contiguous in key)
 
 
-def _widths(full, bucket: bool = False) -> dict:
-    """A recorded operand set cut to the widths every kernel must take: 1,
-    2, its own, and 2 x 128 (a leading stack of 2; lanes repeated where the
-    record is narrower than 256); with `bucket`, also 1,024 (the BLS
-    bucket-1024 width)."""
-    def two_128(a):
-        if a.shape[-1] < 256:
-            a = a[..., torch.arange(256, device=a.device) % a.shape[-1]]
-        return torch.stack([a[..., :128], a[..., 128:256]])
+def _stack(a, K: int, S: int):
+    """A leading stack of K cuts of S lanes of `a` (lanes repeated where
+    `a` is narrower than K x S)."""
+    if a.shape[-1] < K * S:
+        a = a[..., torch.arange(K * S, device=a.device) % a.shape[-1]]
+    return torch.stack([a[..., i * S : (i + 1) * S] for i in range(K)])
 
+
+def _label(width) -> str:
+    """A width of the kernels line: S, or a stack `KxS`."""
+    return "x".join(map(str, width)) if isinstance(width, tuple) else str(width)
+
+
+def _widths(full, extra=()) -> dict:
+    """A recorded operand set cut to the widths every kernel must take: 1,
+    2, its own, and 2 x 128 (a leading stack of 2); and to `extra`, each a
+    lane count the record holds (the BLS bucket-1024 width) or a stack (K,
+    S)."""
     cuts = {
         "S=1": [a[..., :1] for a in full],
         "S=2": [a[..., :2] for a in full],
         f"S={full[0].shape[-1]}": list(full),
-        "2x128": [two_128(a) for a in full],
+        "2x128": [_stack(a, 2, 128) for a in full],
     }
-    if bucket and full[0].shape[-1] > 1024:
-        cuts["S=1024"] = [a[..., :1024] for a in full]
+    for w in extra:
+        if isinstance(w, tuple):
+            cuts[_label(w)] = [_stack(a, *w) for a in full]
+        elif w < full[0].shape[-1]:
+            cuts[f"S={w}"] = [a[..., :w] for a in full]
     return cuts
 
 
@@ -832,14 +854,16 @@ def _widths_ms(name: str, main, widths=REDESIGNED_S) -> dict:
 
     stages = coop.kernel_stats(name)["stages"]
     out = {"latency_floor_ms_S1": stages * JOB_CHAIN_CYCLES / (_sm_clock_mhz() * 1e3)}
-    for S in widths:
-        args = [a[..., :S].contiguous() for a in main]
+    for w in widths:
+        args = [(_stack(a, *w) if isinstance(w, tuple) else a[..., :w]).contiguous()
+                for a in main]
         ms, by = _kernel_ms(name, lambda: _op(name)(*args))
         outs = _op(name)(*args)
-        out[f"ms_S{S}"] = ms
-        out[f"bound_ms_S{S}"] = bound_ms(name, args, outs if isinstance(outs, tuple) else (outs,))[0]
+        key = _label(w)
+        out[f"ms_S{key}"] = ms
+        out[f"bound_ms_S{key}"] = bound_ms(name, args, outs if isinstance(outs, tuple) else (outs,))[0]
         if by != "profiler":
-            out[f"ms_S{S}_timed_by"] = by
+            out[f"ms_S{key}_timed_by"] = by
     return out
 
 
@@ -878,11 +902,14 @@ def phase_kernels() -> dict:
         device_mib_outside_torch_allocator=f"{outside / 2**20:.1f}")
     for name in RECORDED:
         sets = rec[name]
+        extra = ()
+        if name in REDESIGNED:
+            extra = F2MUL_S[2:] if name == "f2mul" else (1024,)
         max_err = max(
             _hold(name, args, f"{label} [{_layout(key)}] {which}")
             for key, entry in sets.items()
             for which in ("first", "last")
-            for label, args in _widths(entry[which], name in REDESIGNED).items()
+            for label, args in _widths(entry[which], extra).items()
         )
         # timed on the layout the path calls most, made contiguous as the
         # path hands it over (a slice of the record would add a copy per call)
@@ -894,10 +921,13 @@ def phase_kernels() -> dict:
         path_args = [a[..., :s_path].contiguous() for a in main]
         row.update(max_abs_err=max(row["max_abs_err"], max_err), path_S=s_path,
                    path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
-        if name in REDESIGNED and "ms_S1" not in row:
+        if name == "f2mul":  # one element of the recorded stack: [2, W, S]
+            row.update(_widths_ms(name, [a.reshape(-1, *a.shape[-3:])[0] for a in main],
+                                  F2MUL_S))
+        elif name in REDESIGNED and "ms_S1" not in row:
             row.update(_widths_ms(name, main))
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
-            widths="S=1,S=2,S=4097,2x128" + (",S=1024" if name in REDESIGNED else ""),
+            widths=",".join(_widths(main, extra)),
             operands="recorded",
             layouts="|".join(f"{_layout(k)}:{e['calls']}" for k, e in sets.items()),
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()})
@@ -991,10 +1021,44 @@ def _device_time(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
 
+def device_totals(events) -> dict:
+    """Device ms of a profiler trace's entries (`key_averages()` or
+    `events()`), each device event counted once: `device_ms` sums the
+    device-side entries (device_type CUDA: the kernels and copies
+    themselves), not the CPU ops that launched them, whose self device time
+    holds their kernels' again; `device_ms_all_entries` sums every entry
+    (the count before this split); `kernels_ms` is each of the port's k_*
+    kernels', `glue_ms` the device-side rest (torch's own kernels and
+    copies)."""
+    dev = _device_side(events)
+    ours = {}
+    for e in dev:
+        if (m := re.search(r"\bk_\w+", e.key)):
+            ours[m.group()] = ours.get(m.group(), 0.0) + _device_time(e) / 1e3
+    total = sum(_device_time(e) for e in dev) / 1e3
+    return dict(device_ms=total,
+                device_ms_all_entries=sum(_device_time(e) for e in events) / 1e3,
+                glue_ms=total - sum(ours.values()), kernels_ms=ours)
+
+
+def _device_side(events) -> list:
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _short_key(key: str) -> str:
+    """A kernel's profiler key without `void`, namespaces and commas (the
+    separator of the line it goes into), cut to 64 characters: enough to
+    tell torch's elementwise kernels apart by their functor."""
+    key = re.sub(r"void |at::native::|\(anonymous namespace\)::|std::", "", key)
+    return key.replace(",", ";").replace(" ", "")[:64]
+
+
 def _device_share(fn, wall_s: float) -> str:
-    """Device (kernel) time of one call, from the profiler's trace, over
-    the same call's wall time measured without the profiler; the eight
-    largest entries, and the device ms of each of the port's kernels."""
+    """Device time of one call, from the profiler's trace (`device_totals`),
+    over the same call's wall time measured without the profiler; the eight
+    largest device-side entries, and the device ms of each of the port's
+    kernels. The key averages' device total must equal the trace's events'
+    within 0.5 %."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1002,18 +1066,19 @@ def _device_share(fn, wall_s: float) -> str:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    dev_us = sum(_device_time(e) for e in events)
-    if dev_us <= 0:
+    tot = device_totals(events)
+    if tot["device_ms"] <= 0:
         return "not_measured(no device time in the profiler trace)"
-    top = sorted(events, key=lambda e: -_device_time(e))[:8]
-    names = ",".join(f"{e.key.replace('(anonymous namespace)::', '')[:28]}:"
-                     f"{_device_time(e) / 1e3:.2f}ms" for e in top)
-    ours = {}
-    for e in events:
-        if (m := re.search(r"\bk_\w+", e.key)):
-            ours[m.group()] = round(ours.get(m.group(), 0.0) + _device_time(e) / 1e3, 3)
-    return (f"{dev_us / 1e6 / wall_s:.4f} device_ms={dev_us / 1e3:.2f} "
-            f"wall_ms={wall_s * 1e3:.1f} top={names} "
+    events_ms = device_totals(prof.events())["device_ms"]
+    if abs(tot["device_ms"] - events_ms) > 0.005 * events_ms:
+        raise AssertionError(f"device ms {tot['device_ms']:.3f} by key, {events_ms:.3f} by event")
+    top = sorted(_device_side(events), key=lambda e: -_device_time(e))[:8]
+    names = ",".join(f"{_short_key(e.key)}:{_device_time(e) / 1e3:.2f}ms" for e in top)
+    ours = {k: round(v, 3) for k, v in tot["kernels_ms"].items()}
+    return (f"{tot['device_ms'] / 1e3 / wall_s:.4f} device_ms={tot['device_ms']:.2f} "
+            f"device_ms_events={events_ms:.2f} "
+            f"device_ms_all_entries={tot['device_ms_all_entries']:.2f} "
+            f"glue_ms={tot['glue_ms']:.2f} wall_ms={wall_s * 1e3:.1f} top={names} "
             f"kernels_ms={json.dumps(ours, separators=(',', ':'))}")
 
 

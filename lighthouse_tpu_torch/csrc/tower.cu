@@ -7,7 +7,8 @@
 // (lighthouse_tpu/ops/lane/tower.py:217-222, `_f2mul_body` / `_f2sqr_body`
 // / `_f6mul_body` / `_f12mul_body` / `_f12sqr_body` / `_f12mul_034_body`).
 // The last two are the unfused halves of the Miller doubling: their bodies
-// also run inside k_miller_dbl_iter and k_miller_add_iter (miller.cu).
+// also run inside k_miller_dbl_iter and k_miller_add_iter (miller.cu),
+// as those kernels' programs.
 //
 // Bound on the H100: integer operations. Per lane element f12mul does 54
 // Fp products (~390,000 int32 operations) against 3 x 1,728 bytes in and
@@ -16,14 +17,19 @@
 // products. reduce_light (two single-row folds, ~300 operations on 288
 // bytes) is bound by bytes.
 //
-// `f12mul` is cooperative (coop.cuh): a block of F12MUL_WARPS warps per
-// lane element, the element's rows in shared memory, each Fp product or
-// reduce_light one warp's job. Its program, traced by ops/lane/coop.py
-// from `_f12mul_body`, is 3 stages: the 54 products of the three Fp6
-// Karatsuba products side by side, then the f2mul and the f6mul
-// reduce_lights (36, 18), on 90 rows. 36 of its 46 launches a BLS verify
-// run at one lane (the final exponentiation), where one thread a lane
-// element ran 54 products in a row.
+// `f12mul` and `f2mul` are cooperative (coop.cuh): a block of
+// F12MUL_WARPS / F2MUL_WARPS warps per lane element, the element's rows in
+// shared memory, each Fp product or reduce_light one warp's job. Their
+// programs are traced by ops/lane/coop.py. `f12mul`'s, from
+// `_f12mul_body`, is 3 stages: the 54 products of the three Fp6 Karatsuba
+// products side by side, then the f2mul and the f6mul reduce_lights (36,
+// 18), on 90 rows. 36 of its 46 launches a BLS verify run at one lane (the
+// final exponentiation), where one thread a lane element ran 54 products
+// in a row. `f2mul`'s, from `_f2mul_body`, is 2 stages: the three
+// Karatsuba products side by side, then the two reduce_lights, on 7 rows.
+// Its 183 launches a bucket-1024 verify run at 1 to 4 x 2,048 lane
+// elements, where one thread a lane element ran the three products in a
+// row with its operands in local memory.
 //
 // The others keep one thread per lane element over the device functions
 // of tower.cuh: the operands and the Karatsuba stacks in the thread's
@@ -45,18 +51,6 @@ __global__ void __launch_bounds__(lh::THREADS)
   lh::load_rows<1>(x, a, k, s, S);
   lh::reduce_light_body(x);
   lh::store_rows<1>(out, x, k, s, S);
-}
-
-__global__ void __launch_bounds__(lh::THREADS)
-    k_f2mul(const int* __restrict__ a, const int* __restrict__ b,
-            int* __restrict__ out, int K, int S) {
-  long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int x[lh::F2], y[lh::F2];
-  lh::load_rows<2>(x, a, k, s, S);
-  lh::load_rows<2>(y, b, k, s, S);
-  lh::f2mul(x, x, y);
-  lh::store_rows<2>(out, x, k, s, S);
 }
 
 __global__ void __launch_bounds__(lh::THREADS)
@@ -83,15 +77,40 @@ __global__ void __launch_bounds__(lh::THREADS)
 
 // ------------------------------------------------------------ cooperative
 
-constexpr int NW = lh::coop::F12MUL_WARPS;  // from ops/lane/coop.py PROGRAMS
+// warps per lane element, from ops/lane/coop.py PROGRAMS
+constexpr int F12MUL_NW = lh::coop::F12MUL_WARPS;
+constexpr int F2MUL_NW = lh::coop::F2MUL_WARPS;
 static_assert(lh::coop::F12MUL_INS == 24 && lh::coop::F12MUL_OUTS == 12, "f12mul: a, b -> a b");
+static_assert(lh::coop::F2MUL_INS == 4 && lh::coop::F2MUL_OUTS == 2, "f2mul: a, b -> a b");
 // the dynamic shared memory each block launches with
-constexpr int F12MUL_SMEM = 4 * lh::coop::smem_ints(NW, lh::coop::F12MUL_ROWS);
-static_assert(F12MUL_SMEM <= 227 * 1024, "a block's shared memory");
+constexpr int F12MUL_SMEM = 4 * lh::coop::smem_ints(F12MUL_NW, lh::coop::F12MUL_ROWS);
+constexpr int F2MUL_SMEM = 4 * lh::coop::smem_ints(F2MUL_NW, lh::coop::F2MUL_ROWS);
+static_assert(F12MUL_SMEM <= 227 * 1024 && F2MUL_SMEM <= 227 * 1024, "a block's shared memory");
 
-__global__ void __launch_bounds__(NW * 32, lh::coop::min_blocks(NW))
+__global__ void __launch_bounds__(F2MUL_NW * 32, lh::coop::min_blocks(F2MUL_NW))
+    k_f2mul(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
+            int S) {
+  constexpr int NW = F2MUL_NW;
+  long k, s;
+  lh::coop::block_elem(S, &k, &s);
+  int* smem = lh::coop::dyn_smem();
+  int* rows = lh::coop::setup<NW>(smem);
+  // the program's input rows: a (2), b (2)
+  lh::coop::load<NW>(rows, a, 2, k, s, S);
+  lh::coop::load<NW>(rows + 2 * W, b, 2, k, s, S);
+  __syncthreads();
+  lh::coop::run<NW>(lh::coop::c_prog_f2mul, smem);
+  for (int t = threadIdx.x; t < 2 * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W;
+    out[lh::coop::at(2, o, i, k, s, S)] =
+        lh::coop::out_limb(lh::coop::c_prog_f2mul, smem, NW, o, i);
+  }
+}
+
+__global__ void __launch_bounds__(F12MUL_NW * 32, lh::coop::min_blocks(F12MUL_NW))
     k_f12mul(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
              int S) {
+  constexpr int NW = F12MUL_NW;
   long k, s;
   lh::coop::block_elem(S, &k, &s);
   int* smem = lh::coop::dyn_smem();
@@ -142,13 +161,18 @@ LH_EXPORT int lh_tower_init(const void* folds, const void* topfm) {
     e = (int)cudaFuncSetAttribute(k_f12mul, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   F12MUL_SMEM);
   }
+  if (!e) {
+    e = (int)cudaFuncSetAttribute(k_f2mul, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  F2MUL_SMEM);
+  }
   return e;
 }
 
 // The dynamic shared memory (bytes) a block of program `slot` (coop.py
-// PROGRAMS: f12mul) launches with; -1 for another slot.
+// PROGRAMS: f12mul, f2mul) launches with; -1 for another slot.
 LH_EXPORT int lh_tower_launch_smem(int slot) {
-  return slot == lh::coop::F12MUL_SLOT ? F12MUL_SMEM : -1;
+  if (slot == lh::coop::F12MUL_SLOT) return F12MUL_SMEM;
+  return slot == lh::coop::F2MUL_SLOT ? F2MUL_SMEM : -1;
 }
 
 LH_EXPORT const char* lh_tower_error_string(int e) {
@@ -167,7 +191,9 @@ LH_EXPORT int lh_fp_reduce_light(const void* a, void* out, int K, int S,
 
 LH_EXPORT int lh_f2mul(const void* a, const void* b, void* out, int K, int S,
                        void* stream) {
-  LH_LAUNCH(k_f2mul, (const int*)a, (const int*)b, (int*)out);
+  k_f2mul<<<(unsigned)((long)K * S), F2MUL_NW * 32, F2MUL_SMEM, (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, (int*)out, S);
+  return (int)cudaGetLastError();
 }
 
 LH_EXPORT int lh_f2sqr(const void* a, void* out, int K, int S, void* stream) {
@@ -181,7 +207,7 @@ LH_EXPORT int lh_f6mul(const void* a, const void* b, void* out, int K, int S,
 
 LH_EXPORT int lh_f12mul(const void* a, const void* b, void* out, int K, int S,
                         void* stream) {
-  k_f12mul<<<(unsigned)((long)K * S), NW * 32, F12MUL_SMEM, (cudaStream_t)stream>>>(
+  k_f12mul<<<(unsigned)((long)K * S), F12MUL_NW * 32, F12MUL_SMEM, (cudaStream_t)stream>>>(
       (const int*)a, (const int*)b, (int*)out, S);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@ The programs are traced here from the plain bodies themselves
 (pairing._dbl_iter_body, pairing._cyc_sqr_body, jacobian._dbl_f2_body,
 chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
 fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
-htc._ratio_table_body, htc._ratio_win_body): run on symbolic rows,
+htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
+tower._f2mul_body): run on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -99,12 +100,20 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # launch a verify runs at twice the bucket's width. On 1 / 2 / 3 / 4
 # warps: 2,048 lanes (bucket 1024) 3.749 / 4.137 / 3.768 / 3.807 ms, 256
 # (bucket 128) 1.645 / 0.992 / 0.866 / 0.967, one lane 1.640 / 0.977 /
-# 0.785 / 0.919: 3 warps (10 blocks an SM). Device ms from
-# tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
+# 0.785 / 0.919: 3 warps (10 blocks an SM). miller_add_iter's 10 stages
+# hold 5, 5, 5, 9, 17, 17, 26, 17, 20, 14 jobs: 26 rounds on 6 warps, 23
+# on 8, 18 on 9, 16 on 13; its 10 launches a verify run 5 at 1,024 lanes
+# and 5 at one. On 6 / 8 / 9 / 13 warps one lane takes 0.0349 / 0.0322 /
+# 0.0295 / 0.0284 ms, 1,024 lanes 0.1270 / 0.1253 / 0.1287 / 0.1343: 8
+# warps take the least over that mix (0.788 ms, 9 warps 0.791). f2mul's 2
+# stages hold 3 products, then 2 reduce_light: 2 rounds on 3 warps, 3 on
+# 2, 5 on 1; 3 warps time fastest at every width a verify calls it (1-512
+# lanes 0.0045-0.0065 ms, 1,024 0.0089, 2,048 0.0153, 4 x 2,048 0.0481).
+# Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
             7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
-            10: ("ratio_win", 3)}
+            10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3)}
 # kernel -> its programs, where it runs more than one: the ratio chain
 # (csrc/htc.cu) runs the table's once, then the window's once a digit of
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
@@ -330,6 +339,10 @@ def program(slot: int) -> np.ndarray:
         # w, 1 -> the ratio chain's 16 entries; acc, E -> acc^4 E
         "ratio_table": (htc._ratio_table_body, (FP2, FP2)),
         "ratio_win": (htc._ratio_win_body, (FP2, FP2)),
+        # f, XT, YT, ZT, xQ, yQ, xP, yP -> f, X3, Y3, Z3
+        "miller_add_iter": (pairing._add_iter_body, (FP12, FP2, FP2, FP2, FP2, FP2, FP, FP)),
+        # a, b -> a b
+        "f2mul": (tower._f2mul_body, (FP2, FP2)),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 

@@ -14,11 +14,14 @@ Run on a machine with a CUDA card:
     python -m lighthouse_tpu_torch.tools.coop_warps g2_win_step --S 1024 --warps 4 8
     python -m lighthouse_tpu_torch.tools.coop_warps f12mul --S 1 512 --warps 8 16 32
     python -m lighthouse_tpu_torch.tools.coop_warps ratio_chain --S 1 256 2048 --warps 1 2 4
+    python -m lighthouse_tpu_torch.tools.coop_warps miller_add_iter --S 1 2 1024 --warps 6 8 9 13
+    python -m lighthouse_tpu_torch.tools.coop_warps f2mul --S 1 1024 2048 --K 1 4 --warps 1 2 3
 
-Kernels: miller_dbl_iter, cyc_sqr, jac_dbl_f2, jac_add_f2, g1_win_step,
-g2_win_step, f12mul, inv_w4, inv_bin, ratio_chain (its two programs on
-one warp count). Several widths (--S) share one build per warp count.
-The seeded operands put no point at infinity.
+Kernels: miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f2,
+jac_add_f2, g1_win_step, g2_win_step, f2mul, f12mul, inv_w4, inv_bin,
+ratio_chain (its two programs on one warp count). Several widths (--S)
+and stack depths (--K: operands [K, ..., S], K x S lane elements) share
+one build per warp count. The seeded operands put no point at infinity.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ REPS = 50
 
 
 def _ops():
-    return {"miller_dbl_iter": pairing._dbl_iter, "cyc_sqr": pairing.cyclotomic_sqr,
+    return {"miller_dbl_iter": pairing._dbl_iter, "miller_add_iter": pairing._add_iter,
+            "cyc_sqr": pairing.cyclotomic_sqr,
             "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
             "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
-            "f12mul": tower.f12mul, "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin,
+            "f2mul": tower.f2mul, "f12mul": tower.f12mul, "inv_w4": chains.inv_w4,
+            "inv_bin": fp.inv_bin,
             "ratio_chain": htc.ratio_chain_op}
 
 
@@ -60,17 +65,19 @@ def warps(name: str, nw: int):
         coop.PROGRAMS.update(old)
 
 
-def operands(name: str, S: int, seed: int = 6) -> list:
-    """Seeded operands of kernel `name` on S lanes: standard limbs, one
-    int32 digit in 0..3 per lane for a ROW operand."""
+def operands(name: str, S: int, seed: int = 6, K: int = 1) -> list:
+    """Seeded operands of kernel `name` on S lanes (a stack of K where K >
+    1): standard limbs, one int32 digit in 0..3 per lane for a ROW
+    operand."""
     rng = np.random.default_rng(seed)
     _, ins, _ = kernels.ENTRIES[_ops()[name].symbol]
+    lead = (K,) if K > 1 else ()
     out = []
     for kind in ins:
         if kind == kernels.ROW:
-            a = rng.integers(0, 4, (1, S), dtype=np.int32)
+            a = rng.integers(0, 4, (*lead, 1, S), dtype=np.int32)
         else:
-            a = rng.integers(0, 1 << fp.B, (*kind, fp.W, S), dtype=np.int32)
+            a = rng.integers(0, 1 << fp.B, (*lead, *kind, fp.W, S), dtype=np.int32)
         out.append(torch.from_numpy(a).cuda())
     return out
 
@@ -99,10 +106,10 @@ def equal_outputs(got: list, want) -> bool:
     return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def run(name: str, S: int, counts, out=print) -> list:
+def run(name: str, S: int, counts, out=print, K: int = 1) -> list:
     op = _ops()[name]
     lib = kernels.ENTRIES[op.symbol][0]
-    args = operands(name, S)
+    args = operands(name, S, K=K)
     want = op.plain(*args)
     variants = {}
     for nw in counts:
@@ -129,7 +136,7 @@ def run(name: str, S: int, counts, out=print) -> list:
     rows = []
     for nw, v in variants.items():
         st = v["stats"]
-        rows.append(dict(kernel=name, warps=nw, S=S, device_ms=float(np.median(v["ms"])),
+        rows.append(dict(kernel=name, warps=nw, K=K, S=S, device_ms=float(np.median(v["ms"])),
                          device_ms_turns=v["ms"], rounds=st["rounds"],
                          smem_bytes=st["smem_bytes"], equal_to_plain_body=True, card=card))
         out(json.dumps(rows[-1]))
@@ -140,13 +147,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("name", choices=sorted(_ops()))
     ap.add_argument("--S", type=int, nargs="+", default=[1024], help="lanes (default 1024)")
+    ap.add_argument("--K", type=int, nargs="+", default=[1], help="stack depths (default 1)")
     ap.add_argument("--warps", type=int, nargs="+", required=True)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("coop_warps: torch sees no CUDA device", file=sys.stderr)
         return 2
-    for S in a.S:
-        run(a.name, S, a.warps)
+    for K in a.K:
+        for S in a.S:
+            run(a.name, S, a.warps, K=K)
     return 0
 
 

@@ -1,0 +1,56 @@
+"""chip_smoke.py's bookkeeping that needs no card: the device time of a
+profiler trace, each device event counted once, and the lane cuts the
+recorded operands are held and timed at."""
+
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+_PATH = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+_spec = importlib.util.spec_from_file_location("chip_smoke", _PATH)
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+
+def _entry(key, device_type, us):
+    return SimpleNamespace(key=key, device_type=device_type, self_device_time_total=us)
+
+
+def test_device_totals_count_each_device_event_once():
+    """A torch op and the kernel it launched both carry the kernel's device
+    time (the op as its self device time): only the kernel counts. The
+    port's k_* kernels, launched through ctypes, have no op above them."""
+    events = [
+        _entry("aten::add", CPU, 1000),
+        _entry("void at::native::vectorized_elementwise_kernel<4, "
+               "at::native::CUDAFunctor_add<int>, std::array<char*, 3ul> >", CUDA, 990),
+        _entry("cudaLaunchKernel", CPU, 0),
+        _entry("(anonymous namespace)::k_f2mul(int const*, int const*, int*, int)", CUDA, 500),
+        _entry("(anonymous namespace)::k_f2mul(int const*, int const*, int*, int)", CUDA, 250),
+        _entry("Memcpy HtoD (Pageable -> Device)", CUDA, 10),
+    ]
+    tot = smoke.device_totals(events)
+    assert tot["device_ms"] == pytest.approx(1.75)
+    assert tot["device_ms_all_entries"] == pytest.approx(2.75)
+    assert tot["glue_ms"] == pytest.approx(1.0)
+    assert tot["kernels_ms"] == {"k_f2mul": pytest.approx(0.75)}
+    assert smoke.device_totals([events[0]])["device_ms"] == 0
+
+
+def test_widths_cut_lanes_and_stacks():
+    """The standard cuts (1, 2, the record's own lanes, 2 x 128) and the
+    extra ones: a lane count the record holds, and a stack (K, S) whose
+    lanes repeat where the record is narrower than K x S."""
+    full = [torch.arange(3000, dtype=torch.int32).expand(2, 36, 3000)]
+    cuts = smoke._widths(full, (1024, 4096, (4, 2048)))
+    assert list(cuts) == ["S=1", "S=2", "S=3000", "2x128", "S=1024", "4x2048"]
+    assert cuts["S=1024"][0].shape == (2, 36, 1024)
+    stack = cuts["4x2048"][0]
+    assert stack.shape == (4, 2, 36, 2048)
+    assert torch.equal(stack[1, 0, 0], torch.arange(2048, 4096, dtype=torch.int32) % 3000)
+    assert smoke._label((4, 2048)) == "4x2048" and smoke._label(2048) == "2048"

@@ -1,8 +1,9 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
-`miller_dbl_iter`, `cyc_sqr`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`,
-`g2_win_step`, `f12mul`, the inversion chains `inv_w4` and `inv_bin` and
-hash-to-G2's ratio chain (two programs, its table and its window) run on
+`miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f2`,
+`jac_add_f2`, `g1_win_step`, `g2_win_step`, `f2mul`, `f12mul`, the
+inversion chains `inv_w4` and `inv_bin` and hash-to-G2's ratio chain (two
+programs, its table and its window) run on
 the card as programs of warp jobs (csrc/coop.cuh), traced from their
 plain bodies. Here each encoded program is executed on CPU tensors
 job by job with the plain Fp bodies, stage by stage with its row reuse,
@@ -46,6 +47,9 @@ ONE = "one"
 BODIES = {
     "miller_dbl_iter": (pairing._dbl_iter_body, [F12, F2, F2, F2, (), ()],
                         [3, 1, 1, 2, 1, 1], 106),
+    # f, XT, YT, ZT, xQ, yQ, xP, yP -> f, X3, Y3, Z3
+    "miller_add_iter": (pairing._add_iter_body, [F12, F2, F2, F2, F2, F2, (), ()],
+                        [3, 1, 1, 2, 1, 1, 1, 1], 81),
     "cyc_sqr": (pairing._cyc_sqr_body, [F12], [3], 18),
     "jac_dbl_f2": (J._dbl_f2_body, [F2, F2, F2], [1, 2, 1], 16),
     # the add's arithmetic: P1, P2 -> P1 + P2
@@ -53,6 +57,7 @@ BODIES = {
     "g1_win_step": (chains._win_core_f1, [()] * 6, [1, 2, 1, 1, 1, 1], 30),
     # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
     "g2_win_step": (chains._win_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 1], 75),
+    "f2mul": (tower._f2mul_body, [F2, F2], [3, 3], 3),
     "f12mul": (tower._f12mul_body, [F12, F12], [3, 3], 54),
     # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
     "inv_w4": (chains._inv_w4_body, [(), ()], [2, ONE], 494),
@@ -62,10 +67,11 @@ BODIES = {
     "ratio_win": (htc._ratio_win_body, [F2, F2], [1, 1], 7),
 }
 # the kernels' sources, by the program each launches
-SOURCES = {"miller_dbl_iter": "miller.cu", "cyc_sqr": "miller.cu",
+SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_sqr": "miller.cu",
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
-           "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu"}
+           "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
+           "f2mul": "tower.cu"}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -275,11 +281,13 @@ def test_programs_fit_the_constant_bank():
     assert words + digits + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
     # with the ratio chain's table (399 words) and window (68), and its 191
-    # digits: 10,428 words of eleven programs, 12,314 of the bank's words
-    # with the digits and the tables, 4,070 left
-    assert (words, digits, coop.TABLES) == (10428, 191, 1695)
+    # digits, miller_add_iter's 978 words and f2mul's 42: 11,448 words of
+    # thirteen programs, 13,334 of the bank's words with the digits and the
+    # tables, 3,050 left
+    assert (words, digits, coop.TABLES) == (11448, 191, 1695)
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 3050
     fake = dict(coop.PROGRAMS)
-    fake[11], fake[12] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[13], fake[14] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -307,11 +315,12 @@ def test_header_mirrors_python():
         assert f"lh::coop::{key}_WARPS" in src and f"lh::coop::{key}_SLOT" in src
         assert not re.search(r"constexpr int \w*WARPS = \d", src)
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
-    # Y3, Z3; f -> f; X, Y, Z -> X3, Y3, Z3; P1, P2 -> P1 + P2; acc, E ->
-    # [4]acc, [4]acc + E over G1 and G2; a, b -> a b; a, 1 -> a^(p-2); w, 1
-    # -> 16 entries; acc, E -> acc^4 E), as the sources' static_asserts
-    # check them
-    for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("cyc_sqr", 12, 12),
+    # Y3, Z3; the same with xQ, yQ; f -> f; X, Y, Z -> X3, Y3, Z3; P1, P2
+    # -> P1 + P2; acc, E -> [4]acc, [4]acc + E over G1 and G2; a, b -> a b
+    # over Fp2 and Fp12; a, 1 -> a^(p-2); w, 1 -> 16 entries; acc, E ->
+    # acc^4 E), as the sources' static_asserts check them
+    for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("miller_add_iter", 24, 18),
+                              ("f2mul", 4, 2), ("cyc_sqr", 12, 12),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
                               ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1),
