@@ -16,12 +16,12 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the twelve cooperative kernels (csrc/coop.cuh:
+   function; for the thirteen cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f2, jac_add_f2,
-   g1_win_step, g2_win_step, f2mul, f12mul, the Fermat inversions inv_w4,
-   inv_bin and hash-to-G2's ratio_chain), their ptxas line, the dynamic shared
-   memory their library launches them with (held equal to their programs'
-   layout) and their programs' shape.
+   g1_win_step, g2_win_step, f2mul, f2sqr, f12mul, the Fermat inversions
+   inv_w4, inv_bin and hash-to-G2's ratio_chain), their ptxas line, the
+   dynamic shared memory their library launches them with (held equal to
+   their programs' layout) and their programs' shape.
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
    slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
@@ -31,23 +31,30 @@ non-zero before the last line:
    inversions inv_w4 and inv_bin on seeded 2-unit operands (a zero lane:
    0 maps to 0) at those widths and at S = 1024, timed at S = 4096 and in
    device ms at S = 1, 2 and 1024, beside their bound and, at S = 1, the
-   latency floor of their serial stages; then every kernel of the
-   pairing check (mul, canon_reduce, reduce_light, f2mul, f2sqr, f6mul,
+   latency floor of their serial stages; canonical (canon_reduce, the
+   ripples and the subtract ladder in one launch) on seeded differences
+   of products at those widths and at S = 1, 2 and 1024, and on its edge
+   operands (0, p, -p, p - 1, 2p, the two ends of the ladder's window),
+   timed at S = 4096 and in device ms and bound at S = 1, 2 and 1024,
+   with the latency floor of its ripples at S = 1; then every kernel of
+   the pairing check (mul, canonical, reduce_light, f2mul, f2sqr, f6mul,
    f12mul, miller_dbl_iter, miller_add_iter, cyc_sqr, inv_bin) against
    theirs on operands recorded from a real Miller loop, final
-   exponentiation and == 1 test over 4097 seeded pairs: every distinct
-   operand layout each kernel met there (shapes, and broadcast views such
-   as frob2's gamma table or the first iteration's expanded 1), each at
-   S = 1, 2, 4097 and at 128 lanes with a leading stack of 2 (the
-   cooperative miller_dbl_iter, miller_add_iter, cyc_sqr, f2mul, f12mul
-   and inv_bin also at S = 1024, the BLS bucket-1024 width, and f2mul at
-   S = 2048 and a stack of 4 x 2048, its widths in a bucket-1024 verify).
-   All torch.equal. Each timed at S = 4096 (profiler device ms,
-   CUDA-event call ms, plain ms, bound) and at the pairing path's own
-   width; the cooperative ones also in device ms and bound at S = 1, 2
-   and 1024 (f2mul also at 2048 and 4 x 2048, on one element of the
-   recorded stack). The ripple glue of
-   canonical(); a small MSM against the host group law.
+   exponentiation and == 1 test over 4097 seeded pairs, and canon_reduce,
+   which no path launches since its body runs inside canonical, on
+   canonical's: every distinct operand layout each kernel met there
+   (shapes, and broadcast views such as frob2's gamma table or the first
+   iteration's expanded 1), each at S = 1, 2, 4097 and at 128 lanes with
+   a leading stack of 2 (the cooperative miller_dbl_iter,
+   miller_add_iter, cyc_sqr, f2mul, f2sqr, f12mul and inv_bin also at S =
+   1024, the BLS bucket-1024 width, and f2mul and f2sqr at S = 2048 and a
+   stack of 4 x 2048, their widths in a bucket-1024 verify). All
+   torch.equal. Each timed at S = 4096 (profiler device ms, CUDA-event
+   call ms, plain ms, bound) and at the pairing path's own width; the
+   cooperative ones also in device ms and bound at S = 1, 2 and 1024
+   (f2mul and f2sqr also at 2048 and 4 x 2048, on one element of the
+   recorded stack). canonical's device ms at S = 4096 and per MSM (the
+   `glue` line); a small MSM against the host group law.
 4. pairing128: a 128-lane Miller loop against the host Miller loop on 4
    lanes; the product over 64 bilinear couples is 1, with one Q swapped it
    is not, with a few couples masked by p_inf it still is.
@@ -58,8 +65,10 @@ non-zero before the last line:
    launch counters are zeroed just before and read just after, and every
    KZG kernel must have run there with no plain body on a CUDA tensor.
    Then, apart: the per-MSM and per-pairing-check launch counts against
-   the counts read off the code, the pairing seam (device against host,
-   the same verdict), one commitment profiled for its device share.
+   the counts read off the code (each canonical() one `canonical`
+   launch), the pairing seam (device against host, the same verdict), one
+   commitment and one pairing check profiled for their device share and
+   torch ops.
 6. bls: jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step against their
    plain bodies on seeded operands (infinity lanes, every digit) at the
    phase 3 widths, timed at S = 4096; all four, cooperative, also at S =
@@ -70,8 +79,9 @@ non-zero before the last line:
    zero) at the phase 3 shapes and S = 1, 2, 256, 2048 (buckets 128 and
    1024 hash twice their width) and 4096, in device ms and bound at those
    widths, with its latency floor at S = 1; all 18 kernels against theirs
-   on every operand layout a real bucket-128 verify meets, at S = 1, 2, the
-   layout's own width and 2 x 128, each timed at the path's width. Then
+   on every operand layout a real bucket-128 verify meets (canon_reduce on
+   canonical's), at S = 1, 2, the layout's own width and 2 x 128, each
+   timed at the path's width. Then
    the BLS main path, counters zeroed just before and read just after:
    tests/test_tpu_backend.py's verdict matrix at bucket 128 through
    `verify_signature_sets(..., backend="cuda")`, each case against the
@@ -81,12 +91,13 @@ non-zero before the last line:
    kernel must have run there, with no plain body on a CUDA tensor, and
    the launches per verify must equal the reference's dispatch census op
    by op at buckets 128 and 1024, each Fermat inversion's chain and
-   hash-to-G2's ratio chain in one launch (inv_w4, inv_bin, ratio_chain).
-   The wall per verify split into host packing and device, the sets/s at
-   1024, and the device share of one 1024 verify from the profiler, with
-   each kernel's device ms in it (`device_totals`: each device event
-   counted once, beside the sum over every profiler entry and the torch
-   glue's share).
+   hash-to-G2's ratio chain in one launch (inv_w4, inv_bin, ratio_chain),
+   each canon_reduce a canonical launch. The wall per verify split into
+   host packing and device, the sets/s at 1024, and the device share of
+   one 1024 verify from the profiler, with each kernel's device ms in it
+   (`device_totals`: each device event counted once, beside the sum over
+   every profiler entry and the torch glue's share) and its torch ops
+   (the profiler's aten:: entries).
 7. ladders, slice 4's paths, each run with the counters zeroed just
    before and read just after (no other launch, no plain body on a CUDA
    tensor): on the 1,024-set batch of phase 6 (bucket 1024, the last
@@ -105,13 +116,14 @@ non-zero before the last line:
    ms per launch and per element-product (lighthouse_tpu_torch.tools.
    ubench_mul.run), there and at 1,024 lanes.
 8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
-   slice 4's paths' for theirs; launches_kzg: phase 5's; launches_slice4:
+   slice 4's paths' for theirs, 0 for canon_reduce, which no path
+   launches; launches_kzg: phase 5's; launches_slice4:
    phase 7's; row 23 of the TPU-kernel table is two entries,
    ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
-   kernels' dynamic shared memory, as each library reports it; their device
-   ms and bound at S = 1, 2 and 1024, f2mul's also at 2048 and 4x2048, and
-   the latency floor at S = 1);
+   kernels' dynamic shared memory, as each library reports it; their and
+   canonical's device ms and bound at S = 1, 2 and 1024, f2mul's and
+   f2sqr's also at 2048 and 4x2048, and the latency floor at S = 1);
    9. the `ok` JSON line (last).
 """
 
@@ -146,6 +158,10 @@ KERNELS = {
     "mul": (CSRC + "fp_mul.cu", "lighthouse_tpu/ops/lane/fp.py:440"),
     "sqr": (CSRC + "fp_mul.cu", "lighthouse_tpu/ops/lane/fp.py:441"),
     "canon_reduce": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:444"),
+    # canonical() in one launch: `canon_reduce` (fp.py:444) and the
+    # ripples and subtract ladder the reference runs around it as glue
+    # (fp.py:490)
+    "canonical": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:444"),
     "jac_dbl_f1": (CSRC + "jac_dbl.cu", "lighthouse_tpu/ops/lane/jacobian.py:163"),
     "jac_add_f1": (CSRC + "jac_add.cu", "lighthouse_tpu/ops/lane/jacobian.py:165"),
     "reduce_light": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/fp.py:442"),
@@ -176,17 +192,24 @@ KERNELS = {
     # `f2mul` (tower.py:217-218) that htc.ratio_chain launched op by op
     "ratio_chain": (CSRC + "htc.cu", "lighthouse_tpu/ops/lane/htc.py:98"),
 }
-# the kernels of the KZG path (slices 1, 2 and 7), of the BLS main path
-# (slices 1-3, 7 and 9) and of slice 4's paths (the ladders, the unfused
-# Miller doubling, the microbenchmark)
+# the kernels of the KZG path (slices 1, 2, 7 and 11), of the BLS main path
+# (slices 1-3, 7, 9 and 11) and of slice 4's paths (the ladders, the unfused
+# Miller doubling, the microbenchmark); canon_reduce, whose body runs inside
+# canonical since slice 11, is held but launched on no path
 _PAIRING = ("reduce_light", "f2mul", "f2sqr", "f6mul", "f12mul", "miller_dbl_iter",
             "miller_add_iter", "cyc_sqr", "inv_bin")
-KZG_KERNELS = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1", *_PAIRING)
+KZG_KERNELS = ("mul", "sqr", "canonical", "jac_dbl_f1", "jac_add_f1", *_PAIRING)
 BLS_KERNELS = (*KZG_KERNELS, "jac_dbl_f2", "jac_add_f2", "g1_win_step", "g2_win_step",
                "inv_w4", "ratio_chain")
 SLICE4_KERNELS = ("norm3", "f12sqr", "f12mul_034", "ladder_step_f1", "ladder_step_f2",
                   "ubench_mul", "ubench_mul_chain")
-assert sorted(BLS_KERNELS + SLICE4_KERNELS) == sorted(KERNELS)
+# canonical() is one kernel, `canonical`, where the reference launches
+# `canon_reduce` and runs the ripples and the ladder as XLA glue: each
+# canon_reduce launch of a count made op by op is one canonical launch,
+# and canon_reduce is held on the operands canonical met (the same input)
+FUSED = {"canon_reduce": "canonical"}
+OFF_PATH = tuple(FUSED)
+assert sorted(BLS_KERNELS + SLICE4_KERNELS + OFF_PATH) == sorted(KERNELS)
 SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1")
 # the inversions, held on seeded operands at SHAPES and CHAIN_S
 CHAIN_KERNELS = ("inv_w4", "inv_bin")
@@ -194,10 +217,16 @@ CHAIN_S = (1, 2, 1024)
 # the ratio chain, held on seeded operands at SHAPES and RATIO_S and timed
 # at RATIO_S: a verify runs it at twice the bucket's width (both draws)
 RATIO_S = (1, 2, 256, 2048, 4096)
-# every kernel of the pairing check, held on operands recorded from a real one
-RECORDED = ("mul", "canon_reduce", *_PAIRING)
-# launches per msm_g1 at a 4096-lane bucket, read off the code
-PER_MSM = {"jac_add_f1": 90, "sqr": 180, "mul": 540, "canon_reduce": 180, "jac_dbl_f1": 346}
+# canonical, held on seeded differences of products at SHAPES and CANON_S
+# and on its edge operands, and timed at S=4096 and CANON_S
+CANON_S = (1, 2, 1024)
+# its latency floor at one lane element: canon_reduce's 8 dependent
+# operations, then 8 ripples of 37 dependent add-and-shift pairs (each
+# ladder round waits for the last round's borrow), at 4 cycles each
+CANON_CHAIN_OPS = 8 + 8 * 37 * 2
+# every kernel of the pairing check, held on operands recorded from a real
+# one (canon_reduce on canonical's)
+RECORDED = ("mul", "canonical", "canon_reduce", *_PAIRING)
 
 
 def _chain_launches() -> dict:
@@ -219,13 +248,23 @@ def _chain_launches() -> dict:
 
 def _with_chains(per_op: dict, chains: dict) -> dict:
     """Launches counted op by op, each of `chains` ({name: calls}) folded
-    into one launch of its kernel."""
+    into one launch of its kernel, and each canonical() into one (FUSED)."""
     out = dict(per_op)
     for chain, n in chains.items():
         for op, per in _chain_launches()[chain].items():
             out[op] -= n * per
         out[chain] = out.get(chain, 0) + n
+    for op, fused in FUSED.items():
+        out[fused] = out.get(fused, 0) + out.pop(op, 0)
     return {k: v for k, v in out.items() if v}
+
+
+# launches per msm_g1 at a 4096-lane bucket, read off the code
+# (ops/lane/msm.py): 256 window doublings and 90 exact adds, each a
+# jac_add_f1, 2 sqr, 6 mul, the collision check's 2 canonical() and a
+# jac_dbl_f1
+PER_MSM = _with_chains({"jac_add_f1": 90, "sqr": 180, "mul": 540, "canon_reduce": 180,
+                        "jac_dbl_f1": 346}, {})
 
 
 def check_launches() -> dict:
@@ -234,26 +273,27 @@ def check_launches() -> dict:
     final_exp's f12inv (4 f6mul, 1 reduce_light, f6inv's 1 f2sqr + 3 f2mul,
     f2inv's 2 mul + fp.inv's chain), frob1's f2mul, 2 frob2 mul, 10 f12mul,
     5 x cyc_pow_u (63 cyc_sqr + 5 f12mul each); f12_eq_one's one
-    canon_reduce."""
+    canonical()."""
     op_by_op = {"miller_dbl_iter": 63, "miller_add_iter": 5, "f12mul": 36, "cyc_sqr": 315,
                 "f6mul": 4, "f2mul": 4, "f2sqr": 1, "reduce_light": 1, "mul": 233,
                 "sqr": 381, "canon_reduce": 1}
     return _with_chains(op_by_op, {"inv_bin": 1})
 
 
-# the cooperative kernels (csrc/coop.cuh; slices 5-10), by the library that
+# the cooperative kernels (csrc/coop.cuh; slices 5-11), by the library that
 # launches them: also held at the bucket-1024 width and read in device ms
 # at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
              "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
              "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
-             "miller_add_iter": "miller", "f2mul": "tower"}
+             "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
-# f2mul's widths in a bucket-1024 verify beyond those: 2,048 lanes and a
-# stack of 4 x 2,048 (K, S); held there and read in device ms on one
-# element of the recorded stack (Fp2 operands [2, W, S])
-F2MUL_S = (*REDESIGNED_S, 2048, (4, 2048))
+# f2mul's and f2sqr's widths in a bucket-1024 verify beyond those: 2,048
+# lanes and a stack of 4 x 2,048 (K, S); held there and read in device ms
+# on one element of the recorded stack (Fp2 operands [2, W, S])
+F2_S = (*REDESIGNED_S, 2048, (4, 2048))
+F2_KERNELS = ("f2mul", "f2sqr")
 # the dependent multiply-adds of one warp product (a column's 36, a fold's
 # 38), at 4 cycles each: a stage of a cooperative program at one lane
 # element takes at least this many cycles of the SM clock
@@ -292,9 +332,9 @@ REFERENCE_PER_VERIFY = {
 def verify_launches(bucket: int) -> dict:
     """The reference's census with each Fermat inversion in one launch:
     3 chains.inv (_to_affine_g1 and _to_affine_g2 at the bucket's width,
-    finish_phase's _to_affine_g2 at 1 lane) and final_exp's fp.inv; and
-    with hash-to-G2's ratio chain in one launch (1,095 / 1,134 launches at
-    buckets 128 / 1024)."""
+    finish_phase's _to_affine_g2 at 1 lane) and final_exp's fp.inv; with
+    hash-to-G2's ratio chain in one launch; and with each canon_reduce a
+    canonical launch (1,095 / 1,134 launches at buckets 128 / 1024)."""
     return _with_chains(REFERENCE_PER_VERIFY[bucket],
                         {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1})
 # launches on slice 4's paths: 64-bit G1 and G2 ladders (the G2 one with
@@ -346,6 +386,9 @@ def _ops_counts():
         fold(W) + passes(s, W)
         for s in ("canon.fold_a", "canon.fold_b", "canon.fold_c", "canon.fold_d")
     )
+    # canonical: canon_reduce, + KP, 8 ripples of 37 limbs (add, shift,
+    # mask), the ladder's 7 subtracts and selects of 37
+    ladder = 37 + 8 * 37 * 3 + 7 * 37 * 2
     lazy = W
     dbl = 5 * sqr + 2 * mul + 3 * rl + 14 * lazy
     add = 5 * sqr + 11 * mul + 4 * rl + 16 * lazy + 3 * W + 2 * W  # + selects, Z tests
@@ -366,7 +409,8 @@ def _ops_counts():
                 + 15 * W + fold(W) + 15 * W)
     ub_entry = 2 * 15 * W
     return {
-        "mul": mul, "sqr": sqr, "canon_reduce": canon, "jac_dbl_f1": dbl,
+        "mul": mul, "sqr": sqr, "canon_reduce": canon, "canonical": canon + ladder,
+        "jac_dbl_f1": dbl,
         "jac_add_f1": add, "reduce_light": rl, "f2mul": f2mul, "f2sqr": f2sqr,
         "f6mul": f6mul, "f12mul": f12mul,
         "miller_dbl_iter": dbl_step + f12sqr + m034,
@@ -434,6 +478,7 @@ def _op(name: str):
 
     return {
         "mul": fp.mul, "sqr": fp.sqr, "canon_reduce": fp.canon_reduce,
+        "canonical": fp.canonical_op,
         "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1,
         "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
         "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
@@ -535,7 +580,7 @@ def _inputs(rng, shape, kind, combos=None):
         return [t(lazy3()), t(canon())]
     if kind == "sqr":
         return [t(lazy3())]
-    if kind == "canon_reduce":  # eq_zero's operand: a difference of products
+    if kind in ("canon_reduce", "canonical"):  # eq_zero's operand: a difference of products
         return [t(canon() - canon())]
     if kind in CHAIN_KERNELS:  # the norm of an Fp2 (a sum of two products); lane 0 zero
         a = t(canon() + canon())
@@ -658,6 +703,52 @@ def _chain_holds(rng, out: dict) -> None:
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             shapes="S=4096,2x128,S=4097,S=1,S=2,S=1024", operands="seeded(2-unit, lane 0 zero)",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+
+
+def _canonical_edges():
+    """canonical()'s edge operands [36, 7], one a lane: 0, p, -p, p - 1
+    and 2p as raw limbs, and a top limb alone (limb 35 = -39153, 46461)
+    that puts the ladder's offset value v + KP (v: canon_reduce's output)
+    at the two ends of its window (0, p * 2^7): 0.0006 p, where no round
+    subtracts, and 0.93 p * 2^7, where all 7 do (tests/test_torch_fp.py
+    holds them on the CPU and checks both offsets)."""
+    from lighthouse_tpu_torch.crypto.bls.params import P
+    from lighthouse_tpu_torch.ops import fp as base
+
+    cols = [np.zeros(36, np.int32), base._limbs_raw(P, 36), -base._limbs_raw(P, 36),
+            base.to_limbs(P - 1), base._limbs_raw(2 * P, 36)]
+    for top in (-39153, 46461):
+        col = np.zeros(36, np.int32)
+        col[-1] = top
+        cols.append(col)
+    return np.stack(cols, axis=1)
+
+
+def _canonical_holds(rng, out: dict) -> None:
+    """canonical against its plain body on seeded differences of products
+    at SHAPES and CANON_S and on its edge operands (whose limbs must be
+    their values mod p), timed at S=4096 and in device ms and bound at
+    CANON_S, with the latency floor of its ripples."""
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    name = "canonical"
+    max_err = 0
+    for shape in SHAPES + [(36, S) for S in CANON_S]:
+        args = _inputs(rng, shape, name)
+        max_err = max(max_err, _hold(name, args, str(shape)))
+        if shape == SHAPES[0]:
+            timing, main = _time(name, args), args
+    edges = torch.from_numpy(_canonical_edges()).to(DEVICE)
+    max_err = max(max_err, _hold(name, [edges], "edges"))
+    got = fp.canonical(edges)
+    if not torch.equal(got.cpu(), torch.from_numpy(fp.pack(fp.unpack(edges)))):
+        raise AssertionError("canonical on the edge operands: limbs are not the values mod p")
+    timing.update(_widths_ms(name, main, CANON_S))
+    out[name] = dict(max_abs_err=max_err, **timing)
+    say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
+        shapes="S=4096,2x128,S=4097,S=1,S=2,S=1024,edges",
+        operands="seeded(differences of products); edges(0,p,-p,p-1,2p,window ends)",
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
 def _median_ms(fn, reps=15, warm=2) -> float:
@@ -847,13 +938,18 @@ def _sm_clock_mhz() -> int:
 def _widths_ms(name: str, main, widths=REDESIGNED_S) -> dict:
     """A redesigned kernel's device ms (profiler) and bound at each of
     `widths`, on the recorded operands (its call ms: path_call_ms),
-    and the latency floor of its programs at one lane element: their
-    stages one after another, each at least one product's chain of
-    dependent multiply-adds (JOB_CHAIN_CYCLES) at the maximum SM clock."""
+    and the latency floor at one lane element at the maximum SM clock: a
+    cooperative kernel's programs' stages one after another, each at
+    least one product's chain of dependent multiply-adds
+    (JOB_CHAIN_CYCLES); canonical's chain of CANON_CHAIN_OPS dependent
+    operations at 4 cycles each."""
     from lighthouse_tpu_torch.ops.lane import coop
 
-    stages = coop.kernel_stats(name)["stages"]
-    out = {"latency_floor_ms_S1": stages * JOB_CHAIN_CYCLES / (_sm_clock_mhz() * 1e3)}
+    if name == "canonical":
+        cycles = CANON_CHAIN_OPS * 4
+    else:
+        cycles = coop.kernel_stats(name)["stages"] * JOB_CHAIN_CYCLES
+    out = {"latency_floor_ms_S1": cycles / (_sm_clock_mhz() * 1e3)}
     for w in widths:
         args = [(_stack(a, *w) if isinstance(w, tuple) else a[..., :w]).contiguous()
                 for a in main]
@@ -889,6 +985,7 @@ def phase_kernels() -> dict:
 
     _slice4_holds(rng, out)
     _chain_holds(rng, out)
+    _canonical_holds(rng, out)
 
     # the pairing kernels, on operands recorded from a real run
     free0, _ = torch.cuda.mem_get_info()
@@ -901,10 +998,10 @@ def phase_kernels() -> dict:
         seconds=f"{time.perf_counter() - t0:.1f}",
         device_mib_outside_torch_allocator=f"{outside / 2**20:.1f}")
     for name in RECORDED:
-        sets = rec[name]
+        sets = rec[FUSED.get(name, name)]
         extra = ()
         if name in REDESIGNED:
-            extra = F2MUL_S[2:] if name == "f2mul" else (1024,)
+            extra = F2_S[2:] if name in F2_KERNELS else (1024,)
         max_err = max(
             _hold(name, args, f"{label} [{_layout(key)}] {which}")
             for key, entry in sets.items()
@@ -917,13 +1014,14 @@ def phase_kernels() -> dict:
         row = out.setdefault(name, {"max_abs_err": 0})
         if "ms" not in row:  # not timed on seeded operands
             row.update(_time(name, [a[..., :4096].contiguous() for a in main], plain_reps=3))
-        s_path = PATH_S.get(name, 1)
-        path_args = [a[..., :s_path].contiguous() for a in main]
-        row.update(max_abs_err=max(row["max_abs_err"], max_err), path_S=s_path,
-                   path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
-        if name == "f2mul":  # one element of the recorded stack: [2, W, S]
+        row["max_abs_err"] = max(row["max_abs_err"], max_err)
+        if name not in OFF_PATH:
+            s_path = PATH_S.get(name, 1)
+            path_args = [a[..., :s_path].contiguous() for a in main]
+            row.update(path_S=s_path, path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
+        if name in F2_KERNELS:  # one element of the recorded stack: [2, W, S]
             row.update(_widths_ms(name, [a.reshape(-1, *a.shape[-3:])[0] for a in main],
-                                  F2MUL_S))
+                                  F2_S))
         elif name in REDESIGNED and "ms_S1" not in row:
             row.update(_widths_ms(name, main))
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
@@ -932,14 +1030,12 @@ def phase_kernels() -> dict:
             layouts="|".join(f"{_layout(k)}:{e['calls']}" for k, e in sets.items()),
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()})
 
-    # canonical(): one canon_reduce launch + the ripple glue (8 ripples of
-    # 37 small torch ops), timed apart at the path's width
-    x = _inputs(rng, (36, 4096), "canon_reduce")[0]
-    canon_ms = _median_ms(lambda: fp.canonical(x), reps=10)
-    glue_ms = canon_ms - out["canon_reduce"]["call_ms"]
-    out["_glue"] = dict(canonical_ms=canon_ms, ripple_glue_ms=glue_ms)
-    say("glue", canonical_ms=f"{canon_ms:.3f}", ripple_glue_ms=f"{glue_ms:.3f}",
-        per_msm_ms=f"{glue_ms * 180:.1f}")
+    # canonical(): one launch since slice 11, where canon_reduce's launch
+    # fed 8 ripples of 37 small torch ops; at the MSM's width, per MSM
+    c = out["canonical"]
+    say("glue", canonical_device_ms_S4096=f"{c['ms']:.5f}",
+        canonical_call_ms_S4096=f"{c['call_ms']:.5f}", per_msm=PER_MSM["canonical"],
+        per_msm_device_ms=f"{c['ms'] * PER_MSM['canonical']:.3f}")
 
     # a small input against the host group law (the port's _msm_host)
     G = (G1X, G1Y)
@@ -1045,6 +1141,25 @@ def _device_side(events) -> list:
     return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def torch_ops(events) -> tuple:
+    """The torch ops of a profiler trace (`events()`): its host-side aten::
+    entries, all of them, and those no other aten:: op called (the ops the
+    program dispatched itself, as a count by dispatch mode on the CPU sees
+    them; tools/verify_census.py)."""
+    aten = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::")]
+
+    def outer(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith("aten::"):
+                return False
+            p = p.cpu_parent
+        return True
+
+    return len(aten), sum(map(outer, aten))
+
+
 def _short_key(key: str) -> str:
     """A kernel's profiler key without `void`, namespaces and commas (the
     separator of the line it goes into), cut to 64 characters: enough to
@@ -1055,10 +1170,10 @@ def _short_key(key: str) -> str:
 
 def _device_share(fn, wall_s: float) -> str:
     """Device time of one call, from the profiler's trace (`device_totals`),
-    over the same call's wall time measured without the profiler; the eight
-    largest device-side entries, and the device ms of each of the port's
-    kernels. The key averages' device total must equal the trace's events'
-    within 0.5 %."""
+    over the same call's wall time measured without the profiler; its
+    torch ops (`torch_ops`), the eight largest device-side entries, and the
+    device ms of each of the port's kernels. The key averages' device total
+    must equal the trace's events' within 0.5 %."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1072,13 +1187,15 @@ def _device_share(fn, wall_s: float) -> str:
     events_ms = device_totals(prof.events())["device_ms"]
     if abs(tot["device_ms"] - events_ms) > 0.005 * events_ms:
         raise AssertionError(f"device ms {tot['device_ms']:.3f} by key, {events_ms:.3f} by event")
+    n_ops, n_outer = torch_ops(prof.events())
     top = sorted(_device_side(events), key=lambda e: -_device_time(e))[:8]
     names = ",".join(f"{_short_key(e.key)}:{_device_time(e) / 1e3:.2f}ms" for e in top)
     ours = {k: round(v, 3) for k, v in tot["kernels_ms"].items()}
     return (f"{tot['device_ms'] / 1e3 / wall_s:.4f} device_ms={tot['device_ms']:.2f} "
             f"device_ms_events={events_ms:.2f} "
             f"device_ms_all_entries={tot['device_ms_all_entries']:.2f} "
-            f"glue_ms={tot['glue_ms']:.2f} wall_ms={wall_s * 1e3:.1f} top={names} "
+            f"glue_ms={tot['glue_ms']:.2f} torch_ops={n_ops} torch_ops_outer={n_outer} "
+            f"wall_ms={wall_s * 1e3:.1f} top={names} "
             f"kernels_ms={json.dumps(ours, separators=(',', ':'))}")
 
 
@@ -1394,8 +1511,8 @@ def phase_bls(card: str) -> tuple:
     sets5, rs5 = _make_sets(5), _scalars(rng, 5)
     rec = _record(lambda: CB.verify_signature_sets(sets5, rs5, device=DEVICE))
     n_layouts = 0
-    for name in sorted(rec):
-        sets = rec[name]
+    for name in sorted(rec) + [k for k, v in FUSED.items() if v in rec]:
+        sets = rec[FUSED.get(name, name)]
         max_err = max(
             _hold(name, args, f"bls {label} [{_layout(key)}] {which}")
             for key, entry in sets.items()
@@ -1408,13 +1525,15 @@ def phase_bls(card: str) -> tuple:
         main = max(sets.values(), key=lambda e: e["calls"] * e["last"][0].shape[-1])["last"]
         path_args = [a.contiguous() for a in main]
         row = out.setdefault(name, {"max_abs_err": 0})
-        row.update(max_abs_err=max(row["max_abs_err"], max_err),
-                   bls_path_S=main[0].shape[-1],
-                   bls_path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
+        row["max_abs_err"] = max(row["max_abs_err"], max_err)
+        if name not in OFF_PATH:
+            row.update(bls_path_S=main[0].shape[-1],
+                       bls_path_call_ms=_median_ms(lambda: _op(name)(*path_args)))
         say("bls", kernel=name, equal="yes", tolerance="exact(torch.equal)",
             widths="S=1,S=2,own,2x128", operands="recorded(bucket-128 verify)",
             layouts="|".join(f"{_layout(k)}:{e['calls']}" for k, e in sets.items()),
-            bls_path_S=row["bls_path_S"], bls_path_call_ms=f"{row['bls_path_call_ms']:.5f}")
+            **{k: (f"{row[k]:.5f}" if isinstance(row[k], float) else row[k])
+               for k in ("bls_path_S", "bls_path_call_ms") if k in row})
     missing = sorted(set(BLS_KERNELS) - set(rec))
     if missing:
         raise AssertionError(f"kernels a bucket-128 verify did not call: {missing}")
@@ -1708,8 +1827,10 @@ def main() -> int:
         parts = [d[name] for d in (per_kernel, per_bls, per_s4) if name in d]
         k = {kk: v for d in parts for kk, v in d.items()}
         k["max_abs_err"] = max(d.get("max_abs_err", 0) for d in parts)
-        # launches: the main path's for its kernels, slice 4's paths' for theirs
-        n = launches[name] if name in BLS_KERNELS else launches_s4[name]
+        # launches: the main path's for its kernels, slice 4's paths' for
+        # theirs, none for a kernel no path launches
+        n = (launches[name] if name in BLS_KERNELS
+             else launches_s4[name] if name in SLICE4_KERNELS else launches.get(name, 0))
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": n, "launches_kzg": launches_kzg.get(name, 0),

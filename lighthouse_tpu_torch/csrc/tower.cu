@@ -17,19 +17,23 @@
 // products. reduce_light (two single-row folds, ~300 operations on 288
 // bytes) is bound by bytes.
 //
-// `f12mul` and `f2mul` are cooperative (coop.cuh): a block of
-// F12MUL_WARPS / F2MUL_WARPS warps per lane element, the element's rows in
-// shared memory, each Fp product or reduce_light one warp's job. Their
-// programs are traced by ops/lane/coop.py. `f12mul`'s, from
-// `_f12mul_body`, is 3 stages: the 54 products of the three Fp6 Karatsuba
-// products side by side, then the f2mul and the f6mul reduce_lights (36,
-// 18), on 90 rows. 36 of its 46 launches a BLS verify run at one lane (the
-// final exponentiation), where one thread a lane element ran 54 products
-// in a row. `f2mul`'s, from `_f2mul_body`, is 2 stages: the three
-// Karatsuba products side by side, then the two reduce_lights, on 7 rows.
-// Its 183 launches a bucket-1024 verify run at 1 to 4 x 2,048 lane
-// elements, where one thread a lane element ran the three products in a
-// row with its operands in local memory.
+// `f12mul`, `f2mul` and `f2sqr` are cooperative (coop.cuh): a block of
+// F12MUL_WARPS / F2MUL_WARPS / F2SQR_WARPS warps per lane element, the
+// element's rows in shared memory, each Fp product or reduce_light one
+// warp's job. Their programs are traced by ops/lane/coop.py. `f12mul`'s,
+// from `_f12mul_body`, is 3 stages: the 54 products of the three Fp6
+// Karatsuba products side by side, then the f2mul and the f6mul
+// reduce_lights (36, 18), on 90 rows. 36 of its 46 launches a BLS verify
+// run at one lane (the final exponentiation), where one thread a lane
+// element ran 54 products in a row. `f2mul`'s, from `_f2mul_body`, is 2
+// stages: the three Karatsuba products side by side, then the two
+// reduce_lights, on 7 rows. Its 183 launches a bucket-1024 verify run at 1
+// to 4 x 2,048 lane elements, where one thread a lane element ran the
+// three products in a row with its operands in local memory. `f2sqr`'s,
+// from `_f2sqr_body`, is one stage of two products, (a0 + a1)(a0 - a1) and
+// a0 (a1 + a1), on 4 rows; its 51 launches a bucket-1024 verify outside
+// the ratio chain run at 1 to 4 x 2,048 lane elements, where one thread a
+// lane element ran the two products in a row.
 //
 // The others keep one thread per lane element over the device functions
 // of tower.cuh: the operands and the Karatsuba stacks in the thread's
@@ -54,16 +58,6 @@ __global__ void __launch_bounds__(lh::THREADS)
 }
 
 __global__ void __launch_bounds__(lh::THREADS)
-    k_f2sqr(const int* __restrict__ a, int* __restrict__ out, int K, int S) {
-  long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int x[lh::F2];
-  lh::load_rows<2>(x, a, k, s, S);
-  lh::f2sqr(x, x);
-  lh::store_rows<2>(out, x, k, s, S);
-}
-
-__global__ void __launch_bounds__(lh::THREADS)
     k_f6mul(const int* __restrict__ a, const int* __restrict__ b,
             int* __restrict__ out, int K, int S) {
   long k, s;
@@ -80,12 +74,17 @@ __global__ void __launch_bounds__(lh::THREADS)
 // warps per lane element, from ops/lane/coop.py PROGRAMS
 constexpr int F12MUL_NW = lh::coop::F12MUL_WARPS;
 constexpr int F2MUL_NW = lh::coop::F2MUL_WARPS;
+constexpr int F2SQR_NW = lh::coop::F2SQR_WARPS;
 static_assert(lh::coop::F12MUL_INS == 24 && lh::coop::F12MUL_OUTS == 12, "f12mul: a, b -> a b");
 static_assert(lh::coop::F2MUL_INS == 4 && lh::coop::F2MUL_OUTS == 2, "f2mul: a, b -> a b");
+static_assert(lh::coop::F2SQR_INS == 2 && lh::coop::F2SQR_OUTS == 2, "f2sqr: a -> a^2");
 // the dynamic shared memory each block launches with
 constexpr int F12MUL_SMEM = 4 * lh::coop::smem_ints(F12MUL_NW, lh::coop::F12MUL_ROWS);
 constexpr int F2MUL_SMEM = 4 * lh::coop::smem_ints(F2MUL_NW, lh::coop::F2MUL_ROWS);
-static_assert(F12MUL_SMEM <= 227 * 1024 && F2MUL_SMEM <= 227 * 1024, "a block's shared memory");
+constexpr int F2SQR_SMEM = 4 * lh::coop::smem_ints(F2SQR_NW, lh::coop::F2SQR_ROWS);
+static_assert(F12MUL_SMEM <= 227 * 1024 && F2MUL_SMEM <= 227 * 1024 &&
+                  F2SQR_SMEM <= 227 * 1024,
+              "a block's shared memory");
 
 __global__ void __launch_bounds__(F2MUL_NW * 32, lh::coop::min_blocks(F2MUL_NW))
     k_f2mul(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
@@ -104,6 +103,24 @@ __global__ void __launch_bounds__(F2MUL_NW * 32, lh::coop::min_blocks(F2MUL_NW))
     const int o = t / W, i = t - o * W;
     out[lh::coop::at(2, o, i, k, s, S)] =
         lh::coop::out_limb(lh::coop::c_prog_f2mul, smem, NW, o, i);
+  }
+}
+
+__global__ void __launch_bounds__(F2SQR_NW * 32, lh::coop::min_blocks(F2SQR_NW))
+    k_f2sqr(const int* __restrict__ a, int* __restrict__ out, int S) {
+  constexpr int NW = F2SQR_NW;
+  long k, s;
+  lh::coop::block_elem(S, &k, &s);
+  int* smem = lh::coop::dyn_smem();
+  int* rows = lh::coop::setup<NW>(smem);
+  // the program's input rows: a (2)
+  lh::coop::load<NW>(rows, a, 2, k, s, S);
+  __syncthreads();
+  lh::coop::run<NW>(lh::coop::c_prog_f2sqr, smem);
+  for (int t = threadIdx.x; t < 2 * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W;
+    out[lh::coop::at(2, o, i, k, s, S)] =
+        lh::coop::out_limb(lh::coop::c_prog_f2sqr, smem, NW, o, i);
   }
 }
 
@@ -165,13 +182,18 @@ LH_EXPORT int lh_tower_init(const void* folds, const void* topfm) {
     e = (int)cudaFuncSetAttribute(k_f2mul, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   F2MUL_SMEM);
   }
+  if (!e) {
+    e = (int)cudaFuncSetAttribute(k_f2sqr, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  F2SQR_SMEM);
+  }
   return e;
 }
 
 // The dynamic shared memory (bytes) a block of program `slot` (coop.py
-// PROGRAMS: f12mul, f2mul) launches with; -1 for another slot.
+// PROGRAMS: f12mul, f2mul, f2sqr) launches with; -1 for another slot.
 LH_EXPORT int lh_tower_launch_smem(int slot) {
   if (slot == lh::coop::F12MUL_SLOT) return F12MUL_SMEM;
+  if (slot == lh::coop::F2SQR_SLOT) return F2SQR_SMEM;
   return slot == lh::coop::F2MUL_SLOT ? F2MUL_SMEM : -1;
 }
 
@@ -197,7 +219,9 @@ LH_EXPORT int lh_f2mul(const void* a, const void* b, void* out, int K, int S,
 }
 
 LH_EXPORT int lh_f2sqr(const void* a, void* out, int K, int S, void* stream) {
-  LH_LAUNCH(k_f2sqr, (const int*)a, (int*)out);
+  k_f2sqr<<<(unsigned)((long)K * S), F2SQR_NW * 32, F2SQR_SMEM, (cudaStream_t)stream>>>(
+      (const int*)a, (int*)out, S);
+  return (int)cudaGetLastError();
 }
 
 LH_EXPORT int lh_f6mul(const void* a, const void* b, void* out, int K, int S,

@@ -13,7 +13,7 @@ The programs are traced here from the plain bodies themselves
 chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
 fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
 htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
-tower._f2mul_body): run on symbolic rows,
+tower._f2mul_body, tower._f2sqr_body): run on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -109,11 +109,20 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # stages hold 3 products, then 2 reduce_light: 2 rounds on 3 warps, 3 on
 # 2, 5 on 1; 3 warps time fastest at every width a verify calls it (1-512
 # lanes 0.0045-0.0065 ms, 1,024 0.0089, 2,048 0.0153, 4 x 2,048 0.0481).
+# f2sqr's one stage holds 2 products: 2 rounds on 1 warp, 1 on 2 and 3;
+# of its 51 launches a bucket-1024 verify 16 run at 1-64 lanes, 6 at
+# 128-512, 17 at 1,024, 10 at 2,048 and 2 at 4 x 2,048. On 1 / 2 / 3
+# warps one lane takes 0.00596 / 0.00452 / 0.00395 ms, 512 0.00659 /
+# 0.00570 / 0.00526, 1,024 0.00810 / 0.00714 / 0.00682, 2,048 0.01152 /
+# 0.01064 / 0.01143, 4 x 2,048 0.03531 / 0.03447 / 0.03470: 3 warps take
+# the least over that mix (0.394 ms, 2 warps 0.403; the block's copy of
+# the tables goes faster on more threads).
 # Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
             7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
-            10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3)}
+            10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3),
+            13: ("f2sqr", 3)}
 # kernel -> its programs, where it runs more than one: the ratio chain
 # (csrc/htc.cu) runs the table's once, then the window's once a digit of
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
@@ -343,6 +352,8 @@ def program(slot: int) -> np.ndarray:
         "miller_add_iter": (pairing._add_iter_body, (FP12, FP2, FP2, FP2, FP2, FP2, FP, FP)),
         # a, b -> a b
         "f2mul": (tower._f2mul_body, (FP2, FP2)),
+        # a -> a^2
+        "f2sqr": (tower._f2sqr_body, (FP2,)),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 

@@ -353,9 +353,9 @@ def normalize(x, width: int = W):
 
 
 def _ripple_carry(v):
-    """Exact carry ripple along the limb axis (a loop of small torch ops:
-    host glue, as the reference keeps its lax.scan outside the kernels).
-    Returns the limbs masked to [0, 2^B) and the carry out of the top."""
+    """Exact carry ripple along the limb axis (the reference's lax.scan,
+    `_ripple_carry`): the limbs masked to [0, 2^B) and the signed carry out
+    of the top."""
     carry = torch.zeros_like(v[..., 0, :])
     sums = []
     for limb in v.unbind(-2):
@@ -365,15 +365,29 @@ def _ripple_carry(v):
     return torch.stack(sums, -2) & _MASK_T, carry
 
 
-def canonical(x):
-    """Unique representative in [0, p); canonical limbs [..., W, S]."""
+def _canonical_fn(folds, topf, x):
+    """canonical() as one body, the plain version of the `canonical` kernel
+    (csrc/fp_canon.cu `k_canonical`): `_canon_reduce_body`, the pad to 37
+    limbs, + KP and a ripple, then the subtract ladder, p * 2^k for k = 6
+    .. 0, each kept where its ripple's carry out of the top (the borrow) is
+    >= 0. The reference's composition, op for op."""
     c = consts(x.device)
-    x = canon_reduce(x)
+    x = _canon_reduce_body(x, folds, topf)
     x = _ripple_carry(_pad_limbs(x, 37) + c["kp37"])[0]
     for k in reversed(range(_LADDER_ROUNDS)):
         d, borrow = _ripple_carry(x - c["pk_ladder"][k])
         x = torch.where((borrow >= 0)[..., None, :], d, x)
     return x[..., :W, :]
+
+
+# one launch per call: canon_reduce, the 8 ripples and the ladder in
+# registers, one thread per lane element
+canonical_op = KernelOp(_canonical_fn, "canonical", "lh_fp_canonical")
+
+
+def canonical(x):
+    """Unique representative in [0, p); canonical limbs [..., W, S]."""
+    return canonical_op(x)
 
 
 def eq_zero(x):

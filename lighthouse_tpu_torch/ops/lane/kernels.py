@@ -37,7 +37,7 @@ BUILD_ROOT = _PKG / "build" / "kernels"
 # library -> source; each library exports lh_<lib>_init / _error_string
 SOURCES = {
     "fp_mul": "fp_mul.cu",        # mul, sqr
-    "fp_canon": "fp_canon.cu",    # canon_reduce, norm3
+    "fp_canon": "fp_canon.cu",    # canon_reduce, canonical, norm3
     "jac_dbl": "jac_dbl.cu",      # jac_dbl_f1, jac_dbl_f2
     "jac_add": "jac_add.cu",      # jac_add_f1, jac_add_f2
     "tower": "tower.cu",          # reduce_light, f2mul, f2sqr, f6mul, f12mul,
@@ -63,6 +63,7 @@ ENTRIES = {
     "lh_fp_mul": ("fp_mul", (FP, FP), (FP,)),
     "lh_fp_sqr": ("fp_mul", (FP,), (FP,)),
     "lh_fp_canon_reduce": ("fp_canon", (FP,), (FP,)),
+    "lh_fp_canonical": ("fp_canon", (FP,), (FP,)),
     "lh_fp_norm3": ("fp_canon", (FP,), (FP,)),
     "lh_jac_dbl_f1": ("jac_dbl", (FP,) * 3, (FP,) * 3),
     "lh_jac_add_f1": ("jac_add", (FP,) * 6, (FP,) * 3),
@@ -95,6 +96,11 @@ ENTRIES = {
     # w -> w^((p^2 - 9) / 16): hash-to-G2's ratio chain
     "lh_ratio_chain": ("htc", (FP2,), (FP2,)),
 }
+
+# the tables a library's lh_<lib>_init takes after FOLDS and TOPFM, by their
+# names in ops/lane/fp.py: canonical()'s offset KP [37] and subtract ladder
+# p * 2^k [7, 37]
+INIT_TABLES = {"fp_canon": ("KP_37", "PK_LADDER")}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -199,23 +205,24 @@ def build() -> Path:
 
 def load(lib: str, folds: np.ndarray, topfm: np.ndarray, out: Path | None = None):
     """Library `lib` of SOURCES (built first if need be), with the constant
-    tables `folds` [W, 41] and `topfm` [3, 73] copied into its constant
-    bank. The libraries copy them by pointer, so they must be C-ordered
-    int32."""
-    for table in (folds, topfm):
+    tables `folds` [W, 41] and `topfm` [3, 73], then its INIT_TABLES from
+    ops/lane/fp.py, copied into its constant bank. The libraries copy them
+    by pointer, so they must be C-ordered int32."""
+    from . import fp  # the constant tables (no cycle at call time)
+
+    tables = (folds, topfm, *(getattr(fp, name) for name in INIT_TABLES.get(lib, ())))
+    for table in tables:
         if not (table.flags.c_contiguous and table.dtype == np.int32):
             raise ValueError("constant tables must be C-ordered int32")
     so = ctypes.CDLL(str((out or build()) / f"lib{lib}.so"))
     init = getattr(so, f"lh_{lib}_init")
-    init.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    init.argtypes = [ctypes.c_void_p] * len(tables)
     init.restype = ctypes.c_int
     err = getattr(so, f"lh_{lib}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     torch.cuda.init()
-    rc = init(
-        folds.ctypes.data_as(ctypes.c_void_p), topfm.ctypes.data_as(ctypes.c_void_p)
-    )
+    rc = init(*(t.ctypes.data_as(ctypes.c_void_p) for t in tables))
     if rc:
         raise RuntimeError(f"lh_{lib}_init: {err(rc).decode()} (code {rc})")
     return so

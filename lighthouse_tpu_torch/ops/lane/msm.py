@@ -3,13 +3,14 @@
 Port of lighthouse_tpu/ops/lane/msm.py: per point a 2^w-entry multiples
 table, then a Horner walk over 255/w windows sharing one ladder across the
 batch, then the lane-halving exact sum tree. Every group op is a
-`jac_dbl_f1` / `jac_add_f1` kernel launch plus the exact-add collision
-check (`mul`, `sqr`, `canon_reduce` kernels and the ripple glue); the
-reference's lax.scan loops are Python loops here.
+`jac_dbl_f1` / `jac_add_f1` kernel launch; an exact add adds the
+collision check (`mul`, `sqr` and two `canonical` kernels, each
+canonical() one launch) and the doubling it may take; the reference's
+lax.scan loops are Python loops here.
 
 At a 4096-lane bucket one `msm_g1` makes 90 exact adds (14 table, 64
 windows, 12 lane_sum levels) and 256 window doublings: 90 `jac_add_f1`,
-346 `jac_dbl_f1`, 540 `mul`, 180 `sqr` and 180 `canon_reduce` launches.
+346 `jac_dbl_f1`, 540 `mul`, 180 `sqr` and 180 `canonical` launches.
 """
 
 from __future__ import annotations

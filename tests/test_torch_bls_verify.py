@@ -5,9 +5,9 @@ policy rejections, one valid 2-set verdict through `local_phase` +
 `finish_phase` on the packed batch cut to its 2 real lanes (against the
 `cpu` backend), the bounded record of verify times, the launches per
 verify at buckets 128 and 1024 equal to the reference's dispatch census op
-by op, each Fermat inversion's chain and hash-to-G2's ratio chain in one
-launch (with shape-only stand-ins for the kernels, as the reference's
-census runs).
+by op, each Fermat inversion's chain, hash-to-G2's ratio chain and each
+canonical() in one launch (with shape-only stand-ins for the kernels, as
+the reference's census runs; tools/verify_census.py).
 `crypto_heavy`: `local_phase` limb-equal to the reference's at 4 lanes, the
 verdict matrix of tests/test_tpu_backend.py on cut lanes, and one batch
 through the reference's own seam with the port registered as its "cuda"
@@ -31,7 +31,8 @@ from lighthouse_tpu_torch.crypto.bls import params
 from lighthouse_tpu_torch.crypto.bls.backends import cpu as CPU
 from lighthouse_tpu_torch.crypto.bls.backends import cuda as CB
 from lighthouse_tpu_torch.crypto.bls.keys import SecretKey, Signature, SignatureSet
-from lighthouse_tpu_torch.ops.lane import chains, fp, htc, kernels
+from lighthouse_tpu_torch.ops.lane import chains, fp, htc
+from lighthouse_tpu_torch.tools import verify_census
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -65,15 +66,22 @@ CHAIN_LAUNCHES = {
     "ratio_chain": {"f2sqr": 1 + 2 * htc._NW, "f2mul": 2 + htc._NW},
 }
 CHAINS_PER_VERIFY = {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1}
+# canonical() is one kernel in the port, `canonical`, where the reference
+# launches `canon_reduce` and runs the ripples and the ladder around it as
+# XLA glue: each canon_reduce launch of the census is one canonical launch
+FUSED = {"canon_reduce": "canonical"}
 
 
 def _with_chains(reference: dict) -> dict:
-    """The reference's census with each inversion's chain in one launch."""
+    """The reference's census with each inversion's chain in one launch
+    and each canonical() in one."""
     out = Counter(reference)
     for chain, n in CHAINS_PER_VERIFY.items():
         for op, per in CHAIN_LAUNCHES[chain].items():
             out[op] -= n * per
         out[chain] += n
+    for op, fused in FUSED.items():
+        out[fused] += out.pop(op)
     return {k: v for k, v in out.items() if v}
 
 
@@ -198,29 +206,7 @@ def _census(S: int) -> Counter:
     """Launches of one verify_core over S lanes, each kernel replaced by a
     stand-in that returns zeros of the kernel's output shapes (the
     path's control flow does not depend on the values)."""
-    counts = Counter()
-
-    def stand_in(op, *arrays):
-        counts[op.name] += 1
-        _, ins, outs = kernels.ENTRIES[op.symbol]
-        leads = [a.shape[: a.dim() - len(kernels._elem(k)) - 1] for a, k in zip(arrays, ins)]
-        lead = torch.broadcast_shapes(*leads)
-        lanes = max(a.shape[-1] for a in arrays)
-        res = [torch.zeros((*lead, *c, fp.W, lanes), dtype=torch.int32) for c in outs]
-        return res[0] if len(res) == 1 else tuple(res)
-
-    args = (
-        torch.zeros(fp.W, S, dtype=torch.int32), torch.zeros(fp.W, S, dtype=torch.int32),
-        *(torch.zeros(2, fp.W, S, dtype=torch.int32) for _ in range(4)),
-        torch.zeros(64, S, dtype=torch.int32), torch.zeros(S, dtype=torch.bool),
-    )
-    mp = pytest.MonkeyPatch()
-    mp.setattr(fp.KernelOp, "__call__", stand_in)
-    try:
-        CB.verify_core(*args)
-    finally:
-        mp.undo()
-    return counts
+    return verify_census.census(S)["launches"]
 
 
 @pytest.mark.parametrize("bucket", [128, 1024])
@@ -228,12 +214,15 @@ def test_launches_per_verify_equal_reference_census(bucket):
     """The reference's census op by op, each inversion's chain and the
     ratio chain in one launch: of its 1,539 sqr and 543 mul, 3 sqr and 17
     mul are left; of its f2sqr and f2mul, 45 and 165 (bucket 128), 51 and
-    183 (bucket 1024); 1,095 and 1,134 launches in all."""
+    183 (bucket 1024); its 38 / 44 canon_reduce are as many canonical
+    launches, and canon_reduce launches no more; 1,095 and 1,134 launches
+    in all."""
     counts = _census(bucket)
     assert dict(counts) == CENSUS[bucket]
     assert (counts["sqr"], counts["mul"]) == (3, 17)
     assert (counts["f2sqr"], counts["f2mul"], counts["ratio_chain"]) == {
         128: (45, 165, 1), 1024: (51, 183, 1)}[bucket]
+    assert (counts["canonical"], counts["canon_reduce"]) == ({128: 38, 1024: 44}[bucket], 0)
     assert sum(counts.values()) == {128: 1095, 1024: 1134}[bucket]
     budgets = json.loads((REPO / "tests" / "budgets" / "kernel_costs.json").read_text())
     ref_total = budgets["buckets"][str(bucket)]["kernel_dispatches"]

@@ -54,3 +54,31 @@ def test_widths_cut_lanes_and_stacks():
     assert stack.shape == (4, 2, 36, 2048)
     assert torch.equal(stack[1, 0, 0], torch.arange(2048, 4096, dtype=torch.int32) % 3000)
     assert smoke._label((4, 2048)) == "4x2048" and smoke._label(2048) == "2048"
+
+
+def test_torch_ops_count_aten_entries_and_the_outer_ones():
+    """The host-side aten:: entries of a trace, and those no other aten::
+    op called; device-side entries and other host entries do not count."""
+    def ev(name, parent=None, device_type=CPU):
+        return SimpleNamespace(name=name, cpu_parent=parent, device_type=device_type)
+
+    where = ev("aten::where")
+    stack = ev("aten::stack", ev("launch"))
+    events = [where, ev("aten::empty", where), stack, ev("aten::cat", ev("x", stack)),
+              ev("cudaLaunchKernel"), ev("aten::add", device_type=CUDA)]
+    assert smoke.torch_ops(events) == (4, 2)
+
+
+def test_launch_pins_fold_each_canonical_into_one_launch():
+    """The pins derived from the op-by-op counts: each canon_reduce launch
+    is one canonical launch (canonical() in one kernel), canon_reduce
+    launches no more, and the totals stay."""
+    for bucket, n in ((128, 38), (1024, 44)):
+        got = smoke.verify_launches(bucket)
+        assert got["canonical"] == n and "canon_reduce" not in got
+        assert sum(got.values()) == {128: 1095, 1024: 1134}[bucket]
+    assert smoke.PER_MSM == {"jac_add_f1": 90, "sqr": 180, "mul": 540, "canonical": 180,
+                             "jac_dbl_f1": 346}
+    check = smoke.check_launches()
+    assert check["canonical"] == 1 and "canon_reduce" not in check
+    assert set(smoke.KZG_KERNELS) >= {"canonical"} and smoke.OFF_PATH == ("canon_reduce",)

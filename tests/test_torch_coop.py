@@ -1,7 +1,7 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
 `miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f2`,
-`jac_add_f2`, `g1_win_step`, `g2_win_step`, `f2mul`, `f12mul`, the
+`jac_add_f2`, `g1_win_step`, `g2_win_step`, `f2mul`, `f2sqr`, `f12mul`, the
 inversion chains `inv_w4` and `inv_bin` and hash-to-G2's ratio chain (two
 programs, its table and its window) run on
 the card as programs of warp jobs (csrc/coop.cuh), traced from their
@@ -58,6 +58,7 @@ BODIES = {
     # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
     "g2_win_step": (chains._win_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 1], 75),
     "f2mul": (tower._f2mul_body, [F2, F2], [3, 3], 3),
+    "f2sqr": (tower._f2sqr_body, [F2], [3], 2),
     "f12mul": (tower._f12mul_body, [F12, F12], [3, 3], 54),
     # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
     "inv_w4": (chains._inv_w4_body, [(), ()], [2, ONE], 494),
@@ -71,7 +72,7 @@ SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
            "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
-           "f2mul": "tower.cu"}
+           "f2mul": "tower.cu", "f2sqr": "tower.cu"}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -109,6 +110,21 @@ def test_program_equals_plain_body(name):
                              torch.cat([rows(a, lead) for a in args]), c["folds"], c["topf"])
     assert got.dtype == torch.int32
     assert torch.equal(got, torch.cat([rows(w, lead) for w in want]))
+
+
+def test_f2sqr_program_at_one_lane():
+    """The standalone `f2sqr` at one lane element, as the final
+    exponentiation's f6inv and the affine conversion of the signature
+    aggregate call it: one stage of two products, limb for limb the plain
+    body's."""
+    body, fields, terms, _ = BODIES["f2sqr"]
+    a = lazy(np.random.default_rng(29), (), fields[0], 1, terms[0])
+    c = fp.consts("cpu")
+    got = coop.run_reference(coop.program(coop.slot("f2sqr")), rows(a, ()),
+                             c["folds"], c["topf"])
+    assert torch.equal(got, rows(body(c["folds"], c["topf"], a), ()))
+    st = coop.stats(coop.slot("f2sqr"))
+    assert (st["stages"], st["jobs"], st["rows"]) == (1, 2, 4)
 
 
 @pytest.mark.parametrize("name", ["g1_win_step", "g2_win_step"])
@@ -281,13 +297,13 @@ def test_programs_fit_the_constant_bank():
     assert words + digits + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
     # with the ratio chain's table (399 words) and window (68), and its 191
-    # digits, miller_add_iter's 978 words and f2mul's 42: 11,448 words of
-    # thirteen programs, 13,334 of the bank's words with the digits and the
-    # tables, 3,050 left
-    assert (words, digits, coop.TABLES) == (11448, 191, 1695)
-    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 3050
+    # digits, miller_add_iter's 978 words, f2mul's 42 and f2sqr's 25:
+    # 11,473 words of fourteen programs, 13,359 of the bank's words with
+    # the digits and the tables, 3,025 left
+    assert (words, digits, coop.TABLES) == (11473, 191, 1695)
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 3025
     fake = dict(coop.PROGRAMS)
-    fake[13], fake[14] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[14], fake[15] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -317,10 +333,10 @@ def test_header_mirrors_python():
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
     # Y3, Z3; the same with xQ, yQ; f -> f; X, Y, Z -> X3, Y3, Z3; P1, P2
     # -> P1 + P2; acc, E -> [4]acc, [4]acc + E over G1 and G2; a, b -> a b
-    # over Fp2 and Fp12; a, 1 -> a^(p-2); w, 1 -> 16 entries; acc, E ->
-    # acc^4 E), as the sources' static_asserts check them
+    # over Fp2 and Fp12; a -> a^2 over Fp2; a, 1 -> a^(p-2); w, 1 -> 16
+    # entries; acc, E -> acc^4 E), as the sources' static_asserts check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("miller_add_iter", 24, 18),
-                              ("f2mul", 4, 2), ("cyc_sqr", 12, 12),
+                              ("f2mul", 4, 2), ("f2sqr", 2, 2), ("cyc_sqr", 12, 12),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
                               ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1),

@@ -8,6 +8,7 @@ tests do (off-TPU its kernel_op calls the body directly); the port runs
 its plain PyTorch bodies, which a CPU tensor selects.
 """
 
+import importlib.util
 import random
 import re
 import zlib
@@ -26,6 +27,16 @@ from lighthouse_tpu_torch.ops import fp as port_base
 from lighthouse_tpu_torch.ops.lane import fp as port
 
 CUH = Path(port.__file__).resolve().parents[2] / "csrc" / "fp_lane.cuh"
+
+
+def _smoke():
+    """chip_smoke.py, loaded from its file (it holds canonical()'s edge
+    operands, which it runs on the card)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -140,6 +151,37 @@ def test_canonical_and_eq_zero_match_python_ints():
     assert port.eq(a, a).all() and not port.eq(a[:, :7], b[:, :7]).any()
 
 
+@pytest.mark.parametrize("case", ["products-36x8", "products-2x36x4", "edges"])
+def test_canonical_plain_body_equals_reference(case):
+    """The `canonical` kernel's plain body (canon_reduce, + KP and a
+    ripple, the 7-round subtract ladder) against the reference's
+    `canonical` limb for limb (exact), on seeded differences of products
+    (the exact add's eq_zero operands) and on the edge operands; the
+    limbs are the values mod p."""
+    c = port.consts("cpu")
+    if case == "edges":
+        x = torch.from_numpy(_smoke()._canonical_edges())
+        v = port._canon_reduce_body(x, c["folds"], c["topf"])
+        # the ladder's offset value v + KP on the last two lanes (exact ints)
+        low, high = (port_base._KP + sum(int(l) << (port.B * i) for i, l in enumerate(v[:, s]))
+                     for s in (5, 6))
+        assert 0 < low < P and (P << 6) < high < (P << 7)
+    else:
+        shape = (36, 8) if case == "products-36x8" else (2, 36, 4)
+        rng = np.random.default_rng(zlib.crc32(case.encode()))
+        a, b, d, e = (torch.from_numpy(lazy(rng, shape)) for _ in range(4))
+        x = port.mul(a, b) - port.mul(d, e)
+    port.reset_counts()
+    got = port.canonical(x)
+    want = np.asarray(ref.canonical(jnp.asarray(x.numpy())))
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    assert np.array_equal(got.numpy(), want)
+    assert port.unpack(got) == port.unpack(x)
+    assert ((got >= 0) & (got <= port.MASK)).all()
+    # a CPU tensor runs the plain body and launches nothing
+    assert not port.LAUNCHES and not port.PLAIN_CUDA_CALLS
+
+
 @pytest.mark.parametrize("shape", [(36, 8), (2, 36, 4)])
 def test_norm3_plain_body_equals_reference(shape):
     """The public carry reset on a 12-term lazy add chain (the depth the
@@ -185,9 +227,10 @@ def test_inv_bin_body_equals_reference():
 
 
 def test_kernel_library_refuses_fortran_ordered_tables():
-    """The libraries copy FOLDS/TOPFM by pointer: a table that is not
-    C-ordered int32 (the concatenation of transposes comes out in Fortran
-    order) is refused before anything is built or loaded."""
+    """The libraries copy FOLDS/TOPFM, and fp_canon also KP_37 and
+    PK_LADDER, by pointer: a table that is not C-ordered int32 (the
+    concatenation of transposes comes out in Fortran order), or a missing
+    one, is refused before anything is built or loaded."""
     from lighthouse_tpu_torch.ops.lane import kernels
 
     fortran = np.concatenate(
@@ -198,3 +241,11 @@ def test_kernel_library_refuses_fortran_ordered_tables():
         kernels.load("fp_mul", fortran, port.TOPFM_NP)
     with pytest.raises(ValueError, match="C-ordered int32"):
         kernels.load("fp_mul", port.FOLDS_NP, port.TOPFM_NP.astype(np.int64))
+    assert kernels.INIT_TABLES["fp_canon"] == ("KP_37", "PK_LADDER")
+    assert port.KP_37.flags.c_contiguous and port.PK_LADDER.flags.c_contiguous
+    for name, bad in (("PK_LADDER", np.asfortranarray(port.PK_LADDER)),
+                      ("KP_37", port.KP_37.astype(np.int64))):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(port, name, bad)
+            with pytest.raises(ValueError, match="C-ordered int32"):
+                kernels.load("fp_canon", port.FOLDS_NP, port.TOPFM_NP)
