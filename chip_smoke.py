@@ -16,18 +16,24 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the thirteen cooperative kernels (csrc/coop.cuh:
-   miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f2, jac_add_f2,
-   g1_win_step, g2_win_step, f2mul, f2sqr, f12mul, the Fermat inversions
-   inv_w4, inv_bin and hash-to-G2's ratio_chain), their ptxas line, the
-   dynamic shared memory their library launches them with (held equal to
-   their programs' layout) and their programs' shape.
+   function; for the fifteen cooperative kernels (csrc/coop.cuh:
+   miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
+   jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul, f2sqr, f12mul,
+   the Fermat inversions inv_w4, inv_bin and hash-to-G2's ratio_chain),
+   their ptxas line, the dynamic shared memory their library launches
+   them with (held equal to their programs' layout) and their programs'
+   shape (stages, jobs, rows, warps, words).
 3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
    plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
-   slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1, ladder_step_f2,
-   ubench_mul and ubench_mul_chain (R = 3) on seeded operands at those
-   widths and at S = 1 and 2 (infinity lanes on both sides of a ladder
-   step, its bit row all 0, all 1 and mixed), timed at S = 4096; the
+   the cooperative jac_dbl_f1 and jac_add_f1 (slice 12) also at the
+   commit MSM's lane-sum widths 2,048 ... 1 as [36, S] (the add with P1,
+   P2, both or neither at infinity at each width, below 4 lanes a hold per
+   S of the cases; the doubling once a width), in device ms and bound at
+   1 ... 4,096 lanes with the latency floor at S = 1; slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1,
+   ladder_step_f2, ubench_mul and ubench_mul_chain (R = 3) on seeded
+   operands at those widths and at S = 1 and 2 (infinity lanes on both
+   sides of a ladder step, its bit row all 0, all 1 and mixed), timed at
+   S = 4096; the
    inversions inv_w4 and inv_bin on seeded 2-unit operands (a zero lane:
    0 maps to 0) at those widths and at S = 1024, timed at S = 4096 and in
    device ms at S = 1, 2 and 1024, beside their bound and, at S = 1, the
@@ -159,9 +165,9 @@ KERNELS = {
     "sqr": (CSRC + "fp_mul.cu", "lighthouse_tpu/ops/lane/fp.py:441"),
     "canon_reduce": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:444"),
     # canonical() in one launch: `canon_reduce` (fp.py:444) and the
-    # ripples and subtract ladder the reference runs around it as glue
-    # (fp.py:490)
-    "canonical": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:444"),
+    # ripples and subtract ladder the reference's `canonical` (fp.py:488)
+    # runs around it as glue
+    "canonical": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:488"),
     "jac_dbl_f1": (CSRC + "jac_dbl.cu", "lighthouse_tpu/ops/lane/jacobian.py:163"),
     "jac_add_f1": (CSRC + "jac_add.cu", "lighthouse_tpu/ops/lane/jacobian.py:165"),
     "reduce_light": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/fp.py:442"),
@@ -280,13 +286,14 @@ def check_launches() -> dict:
     return _with_chains(op_by_op, {"inv_bin": 1})
 
 
-# the cooperative kernels (csrc/coop.cuh; slices 5-11), by the library that
+# the cooperative kernels (csrc/coop.cuh; slices 5-12), by the library that
 # launches them: also held at the bucket-1024 width and read in device ms
 # at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
              "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
              "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
-             "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower"}
+             "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower",
+             "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
 # f2mul's and f2sqr's widths in a bucket-1024 verify beyond those: 2,048
@@ -294,6 +301,13 @@ REDESIGNED_S = (1, 2, 1024)
 # on one element of the recorded stack (Fp2 operands [2, W, S])
 F2_S = (*REDESIGNED_S, 2048, (4, 2048))
 F2_KERNELS = ("f2mul", "f2sqr")
+# the G1 group kernels' widths in a 4,096-lane commit MSM (ops/lane/msm.py):
+# its walk at 4,096 lanes, its lane sum at 2,048 ... 1; held there (the add
+# on every infinity combination, ADD_COMBOS) and read in device ms
+MSM_S = tuple(1 << i for i in range(13))
+MSM_KERNELS = ("jac_dbl_f1", "jac_add_f1")
+# (digit, P1 at infinity, P2 at infinity): an add's four cases
+ADD_COMBOS = [(0, a, b) for a in (0, 1) for b in (0, 1)]
 # the dependent multiply-adds of one warp product (a column's 36, a fold's
 # 38), at 4 cycles each: a stage of a cooperative program at one lane
 # element takes at least this many cycles of the SM clock
@@ -935,6 +949,22 @@ def _sm_clock_mhz() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
 
 
+def _msm_width_holds(rng, name: str) -> int:
+    """A G1 group kernel against its plain body on seeded operands at the
+    MSM's widths below 4,096 (MSM_S), in the lane sum's layout [36, S]: the
+    add on each of ADD_COMBOS (below 4 lanes, a hold per S of them), the
+    doubling once a width on the default infinity pattern. Returns the max
+    |difference| (0)."""
+    err = 0
+    for S in MSM_S[:-1]:
+        chunks = ([ADD_COMBOS[i : i + S] for i in range(0, len(ADD_COMBOS), S)]
+                  if name == "jac_add_f1" else [None])
+        for combos in chunks:
+            args = _inputs(rng, (36, S), name, combos=combos)
+            err = max(err, _hold(name, args, f"S={S} {combos or 'default pattern'}"))
+    return err
+
+
 def _widths_ms(name: str, main, widths=REDESIGNED_S) -> dict:
     """A redesigned kernel's device ms (profiler) and bound at each of
     `widths`, on the recorded operands (its call ms: path_call_ms),
@@ -977,10 +1007,15 @@ def phase_kernels() -> dict:
             args = _inputs(rng, shape, name)
             max_err = max(max_err, _hold(name, args, str(shape)))
             if shape == SHAPES[0]:
-                timing = _time(name, args)
+                timing, main = _time(name, args), args
+        if name in MSM_KERNELS:
+            max_err = max(max_err, _msm_width_holds(rng, name))
+            timing.update(_widths_ms(name, main, MSM_S))
         out[name] = dict(max_abs_err=max_err, **timing)
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
-            shapes="36x4096,2x36x128,36x4097", operands="seeded",
+            shapes="36x4096,2x36x128,36x4097"
+            + (",S=" + "|".join(map(str, MSM_S[:-1])) if name in MSM_KERNELS else ""),
+            operands="seeded" + ("(every infinity combination)" if name == "jac_add_f1" else ""),
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
     _slice4_holds(rng, out)

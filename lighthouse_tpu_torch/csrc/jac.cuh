@@ -1,7 +1,7 @@
 // Jacobian group operations over Fp (G1) and Fp2 (G2) as CUDA device
 // functions, one thread per lane element: the device half of the bodies of
 // lighthouse_tpu_torch/ops/lane/jacobian.py (`_dbl_body`, `_add_body`) for
-// the one-thread kernels (`jac_dbl_f1`, `jac_add_f1`, the ladder steps).
+// the one-thread ladder steps (ladder.cu `ladder_step_f1`, `ladder_step_f2`).
 //
 // The bodies are written once, templated on the field, as the reference's
 // are generic over its `f2` flag:

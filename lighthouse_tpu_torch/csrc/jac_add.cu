@@ -12,81 +12,81 @@
 // int32 operations per pair against 1,296 bytes in and out; over Fp2 43 Fp
 // products against 2,592 bytes).
 //
-// `jac_add_f1` (the MSM's) keeps one thread per lane element over
-// `lh::jac_add<Fp1>` (jac.cuh): about a dozen field temporaries in the
-// thread's local memory, the body out of line, each product in the
-// out-of-line fp_mul with its limbs in registers.
-//
-// `jac_add_f2` is cooperative (coop.cuh): a block of JAC_ADD_F2_WARPS warps
-// per lane element, both points' rows in shared memory, each Fp product,
-// square and reduce_light one warp's job. Its program is traced from
-// `_add_core_f2` (add-2007-bl without the selection) by ops/lane/coop.py
-// into the generated header coop_programs.h: 10 stages of 73 jobs (43
-// products, 30 reduce_light) on 31 rows, mapping (P1, P2) to the sum. The
+// Both are cooperative (coop.cuh), one kernel template `add` over the
+// component count C (1 over Fp, 2 over Fp2): a block of JAC_ADD_F1_WARPS
+// or JAC_ADD_F2_WARPS warps per lane element, both points' rows in shared
+// memory, each Fp product, square and reduce_light one warp's job. The
+// programs are traced from `_add_core_f1` and `_add_core_f2` (add-2007-bl
+// without the selection) by ops/lane/coop.py into the generated header
+// coop_programs.h, mapping (P1, P2) to the sum: over Fp 7 stages of 20
+// jobs (16 products and squares, 4 reduce_light) on 14 rows, over Fp2 10
+// stages of 73 jobs (43 products, 30 reduce_light) on 31 rows. The
 // selects (`_add_select`) are uniform over the block, one lane element:
 // the block tests Z1 and Z2 while their rows still hold the inputs
 // (`__syncthreads_or`), runs the program, then writes P2 (P1 at infinity),
-// P1 (P2 at infinity), each re-read from global memory, or the sum.
+// P1 (P2 at infinity), each re-read from global memory, or the sum. G1's
+// program replaces one thread per lane element that kept about a dozen
+// field temporaries in local memory (jac.cuh, which the ladder steps
+// still use).
 #include "coop.cuh"
 #include "coop_programs.h"
-#include "jac.cuh"
 
 namespace {
 
 using lh::W;
 
-__global__ void __launch_bounds__(lh::THREADS)
-    k_jac_add_f1(const int* __restrict__ x1, const int* __restrict__ y1,
-                 const int* __restrict__ z1, const int* __restrict__ x2,
-                 const int* __restrict__ y2, const int* __restrict__ z2,
-                 int* __restrict__ ox, int* __restrict__ oy,
-                 int* __restrict__ oz, int K, int S) {
-  long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int X1[W], Y1[W], Z1[W], X2[W], Y2[W], Z2[W], X3[W], Y3[W], Z3[W];
-  lh::load_rows<1>(X1, x1, k, s, S);
-  lh::load_rows<1>(Y1, y1, k, s, S);
-  lh::load_rows<1>(Z1, z1, k, s, S);
-  lh::load_rows<1>(X2, x2, k, s, S);
-  lh::load_rows<1>(Y2, y2, k, s, S);
-  lh::load_rows<1>(Z2, z2, k, s, S);
-  lh::jac_add<lh::Fp1>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3);
-  lh::store_rows<1>(ox, X3, k, s, S);
-  lh::store_rows<1>(oy, Y3, k, s, S);
-  lh::store_rows<1>(oz, Z3, k, s, S);
-}
-
-// ------------------------------------------------------------ cooperative
-
-constexpr int NW = lh::coop::JAC_ADD_F2_WARPS;  // from ops/lane/coop.py PROGRAMS
+// warps per lane element, from ops/lane/coop.py PROGRAMS
+constexpr int NW1 = lh::coop::JAC_ADD_F1_WARPS;
+constexpr int NW2 = lh::coop::JAC_ADD_F2_WARPS;
+static_assert(lh::coop::JAC_ADD_F1_INS == 6 && lh::coop::JAC_ADD_F1_OUTS == 3,
+              "jac_add_f1: P1, P2 -> P1 + P2");
 static_assert(lh::coop::JAC_ADD_F2_INS == 12 && lh::coop::JAC_ADD_F2_OUTS == 6,
               "jac_add_f2: P1, P2 -> P1 + P2");
 // the dynamic shared memory each block launches with
-constexpr int ADD_F2_SMEM = 4 * lh::coop::smem_ints(NW, lh::coop::JAC_ADD_F2_ROWS);
+constexpr int ADD_F1_SMEM = 4 * lh::coop::smem_ints(NW1, lh::coop::JAC_ADD_F1_ROWS);
+constexpr int ADD_F2_SMEM = 4 * lh::coop::smem_ints(NW2, lh::coop::JAC_ADD_F2_ROWS);
 
-__global__ void __launch_bounds__(NW * 32, lh::coop::min_blocks(NW))
-    k_jac_add_f2(const int* __restrict__ x1, const int* __restrict__ y1,
-                 const int* __restrict__ z1, const int* __restrict__ x2,
-                 const int* __restrict__ y2, const int* __restrict__ z2,
-                 int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz, int S) {
-  const int* prog = lh::coop::c_prog_jac_add_f2;
+// The add of lane element blockIdx.x through program `prog`, over points
+// of C rows a coordinate.
+template <int NW, int C>
+__device__ __forceinline__ void add(const int* prog, const int* __restrict__ x1,
+                                    const int* __restrict__ y1, const int* __restrict__ z1,
+                                    const int* __restrict__ x2, const int* __restrict__ y2,
+                                    const int* __restrict__ z2, int* __restrict__ ox,
+                                    int* __restrict__ oy, int* __restrict__ oz, int S) {
   long k, s;
   lh::coop::block_elem(S, &k, &s);
   int* smem = lh::coop::dyn_smem();
   int* rows = lh::coop::setup<NW>(smem);
-  // the program's input rows: P1 (X1, Y1, Z1, 2 each), then P2
-  lh::coop::load_point<NW, 2>(rows, x1, y1, z1, k, s, S);
-  lh::coop::load_point<NW, 2>(rows + 6 * W, x2, y2, z2, k, s, S);
+  // the program's input rows: P1 (X1, Y1, Z1, C each), then P2
+  lh::coop::load_point<NW, C>(rows, x1, y1, z1, k, s, S);
+  lh::coop::load_point<NW, C>(rows + 3 * C * W, x2, y2, z2, k, s, S);
   __syncthreads();
-  // structural infinity of Z1 (rows 4-5) and Z2 (rows 10-11), before the
-  // program may reuse them
-  const bool p1_inf = lh::coop::rows_zero<NW>(rows + 4 * W, 2);
-  const bool p2_inf = lh::coop::rows_zero<NW>(rows + 10 * W, 2);
+  // structural infinity of Z1 (rows 2C ..) and Z2 (rows 5C ..), before
+  // the program may reuse them
+  const bool p1_inf = lh::coop::rows_zero<NW>(rows + 2 * C * W, C);
+  const bool p2_inf = lh::coop::rows_zero<NW>(rows + 5 * C * W, C);
   lh::coop::run<NW>(prog, smem);
   // `_add_select`: P1 at infinity -> P2; else P2 at infinity -> P1; else
-  // the sum (outputs 0-5)
-  lh::coop::store_point<NW, 2>(prog, smem, 0, p1_inf || p2_inf, p1_inf ? x2 : x1,
+  // the sum (outputs 0 .. 3C - 1)
+  lh::coop::store_point<NW, C>(prog, smem, 0, p1_inf || p2_inf, p1_inf ? x2 : x1,
                                p1_inf ? y2 : y1, p1_inf ? z2 : z1, ox, oy, oz, k, s, S);
+}
+
+__global__ void __launch_bounds__(NW1 * 32, lh::coop::min_blocks(NW1))
+    k_jac_add_f1(const int* __restrict__ x1, const int* __restrict__ y1,
+                 const int* __restrict__ z1, const int* __restrict__ x2,
+                 const int* __restrict__ y2, const int* __restrict__ z2,
+                 int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz, int S) {
+  add<NW1, 1>(lh::coop::c_prog_jac_add_f1, x1, y1, z1, x2, y2, z2, ox, oy, oz, S);
+}
+
+__global__ void __launch_bounds__(NW2 * 32, lh::coop::min_blocks(NW2))
+    k_jac_add_f2(const int* __restrict__ x1, const int* __restrict__ y1,
+                 const int* __restrict__ z1, const int* __restrict__ x2,
+                 const int* __restrict__ y2, const int* __restrict__ z2,
+                 int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz, int S) {
+  add<NW2, 2>(lh::coop::c_prog_jac_add_f2, x1, y1, z1, x2, y2, z2, ox, oy, oz, S);
 }
 
 }  // namespace
@@ -95,6 +95,10 @@ LH_EXPORT int lh_jac_add_init(const void* folds, const void* topfm) {
   int e = lh::copy_consts(folds, topfm);
   if (!e) e = lh::coop::copy_tables(folds, topfm);
   if (!e) {
+    e = (int)cudaFuncSetAttribute(k_jac_add_f1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  ADD_F1_SMEM);
+  }
+  if (!e) {
     e = (int)cudaFuncSetAttribute(k_jac_add_f2, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   ADD_F2_SMEM);
   }
@@ -102,9 +106,11 @@ LH_EXPORT int lh_jac_add_init(const void* folds, const void* topfm) {
 }
 
 // The dynamic shared memory (bytes) a block of program `slot` (coop.py
-// PROGRAMS: jac_add_f2) launches with; -1 for another slot.
+// PROGRAMS: jac_add_f1, jac_add_f2) launches with; -1 for another slot.
 LH_EXPORT int lh_jac_add_launch_smem(int slot) {
-  return slot == lh::coop::JAC_ADD_F2_SLOT ? ADD_F2_SMEM : -1;
+  return slot == lh::coop::JAC_ADD_F1_SLOT
+             ? ADD_F1_SMEM
+             : (slot == lh::coop::JAC_ADD_F2_SLOT ? ADD_F2_SMEM : -1);
 }
 
 LH_EXPORT const char* lh_jac_add_error_string(int e) {
@@ -115,10 +121,10 @@ LH_EXPORT int lh_jac_add_f1(const void* x1, const void* y1, const void* z1,
                             const void* x2, const void* y2, const void* z2,
                             void* ox, void* oy, void* oz, int K, int S,
                             void* stream) {
-  k_jac_add_f1<<<lh::blocks_for(K, S), lh::THREADS, 0,
+  k_jac_add_f1<<<(unsigned)((long)K * S), NW1 * 32, ADD_F1_SMEM,
                  (cudaStream_t)stream>>>(
       (const int*)x1, (const int*)y1, (const int*)z1, (const int*)x2,
-      (const int*)y2, (const int*)z2, (int*)ox, (int*)oy, (int*)oz, K, S);
+      (const int*)y2, (const int*)z2, (int*)ox, (int*)oy, (int*)oz, S);
   return (int)cudaGetLastError();
 }
 
@@ -126,7 +132,7 @@ LH_EXPORT int lh_jac_add_f2(const void* x1, const void* y1, const void* z1,
                             const void* x2, const void* y2, const void* z2,
                             void* ox, void* oy, void* oz, int K, int S,
                             void* stream) {
-  k_jac_add_f2<<<(unsigned)((long)K * S), NW * 32, ADD_F2_SMEM,
+  k_jac_add_f2<<<(unsigned)((long)K * S), NW2 * 32, ADD_F2_SMEM,
                  (cudaStream_t)stream>>>(
       (const int*)x1, (const int*)y1, (const int*)z1, (const int*)x2,
       (const int*)y2, (const int*)z2, (int*)ox, (int*)oy, (int*)oz, S);

@@ -13,7 +13,8 @@ The programs are traced here from the plain bodies themselves
 chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
 fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
 htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
-tower._f2mul_body, tower._f2sqr_body): run on symbolic rows,
+tower._f2mul_body, tower._f2sqr_body, jacobian._dbl_f1_body,
+jacobian._add_core_f1): run on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -32,7 +33,7 @@ the add's structural infinity) is traced without it, and its kernel makes
 the select after the program, in an epilogue: one block is one lane
 element, so the select is uniform over the block and only picks which
 rows the block loads or writes (csrc/chains.cu `win_step`, csrc/jac_add.cu
-`k_jac_add_f2`).
+`add`).
 
 A program holds no loop either: a chain whose steps repeat is two
 programs, one run once and one run a step at a time by its kernel, which
@@ -116,13 +117,23 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # 0.00570 / 0.00526, 1,024 0.00810 / 0.00714 / 0.00682, 2,048 0.01152 /
 # 0.01064 / 0.01143, 4 x 2,048 0.03531 / 0.03447 / 0.03470: 3 warps take
 # the least over that mix (0.394 ms, 2 warps 0.403; the block's copy of
-# the tables goes faster on more threads).
+# the tables goes faster on more threads). The MSM's G1 group ops run 334
+# doublings and 78 adds at 4,096 lanes a commit, and 12 of each in its
+# lane sum at 2,048 ... 1. jac_dbl_f1's 6 stages hold 3, 4, 1, 1, 1, 1
+# jobs: 11 rounds on 1 warp, 8 on 2, 7 on 3, 6 on 4; at 4,096 lanes 1 / 2
+# / 3 / 4 warps take 0.04727 / 0.05082 / 0.04646 / 0.04873 ms, at one lane
+# 0.01267 / 0.00962 / 0.00786 / 0.00759; over the commit's mix 3 warps take
+# the least (15.64 ms, 4 warps 16.40, 1 warp 15.96). jac_add_f1's 7 stages
+# hold 5, 5, 3, 3, 2, 1, 1 jobs: 13 rounds on 2 warps, 9 on 3 and 4, 7 on
+# 5; at 4,096 lanes 2 / 3 / 4 / 5 warps take 0.09915 / 0.09506 / 0.09484 /
+# 0.10149 ms, at one lane 0.01634 / 0.01373 / 0.01286 / 0.01198; over the
+# mix 4 warps take the least (7.616 ms, 3 warps 7.641, 5 warps 8.133).
 # Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
             7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
             10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3),
-            13: ("f2sqr", 3)}
+            13: ("f2sqr", 3), 14: ("jac_dbl_f1", 3), 15: ("jac_add_f1", 4)}
 # kernel -> its programs, where it runs more than one: the ratio chain
 # (csrc/htc.cu) runs the table's once, then the window's once a digit of
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
@@ -343,6 +354,9 @@ def program(slot: int) -> np.ndarray:
         "inv_bin": (fp._inv_bin_body, (FP, FP)),
         # P1, P2 -> P1 + P2 (no selection)
         "jac_add_f2": (jacobian._add_core_f2, (FP2,) * 6),
+        # the same over Fp (G1)
+        "jac_dbl_f1": (jacobian._dbl_f1_body, (FP,) * 3),
+        "jac_add_f1": (jacobian._add_core_f1, (FP,) * 6),
         # acc, E -> [4]acc, [4]acc + E (no selection)
         "g1_win_step": (chains._win_core_f1, (FP,) * 6),
         # w, 1 -> the ratio chain's 16 entries; acc, E -> acc^4 E

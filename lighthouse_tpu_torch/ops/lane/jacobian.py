@@ -7,12 +7,12 @@ of Z exactly 0, of both components over Fp2) and the same op tables. The
 bodies are field-generic, as the reference's (`f2` flag). `double` and the
 branchless `add` each launch ONE kernel on CUDA tensors (`jac_dbl_f1`,
 `jac_add_f1`, `jac_dbl_f2`, `jac_add_f2`: csrc/jac_dbl.cu and
-csrc/jac_add.cu; the G1 two over csrc/jac.cuh, the G2 two cooperative,
-their programs traced from `_dbl_f2_body` and `_add_core_f2` by coop.py,
-the add's infinity selects in its kernel's epilogue), and so does one
-step of the
-per-lane dynamic ladder (`ladder_step_f1`, `ladder_step_f2`:
-csrc/ladder.cu); the bodies below are their plain PyTorch versions.
+csrc/jac_add.cu, all four cooperative, their programs traced from
+`_dbl_f1_body`, `_add_core_f1`, `_dbl_f2_body` and `_add_core_f2` by
+coop.py, the adds' infinity selects in their kernels' epilogue), and so
+does one step of the per-lane dynamic ladder (`ladder_step_f1`,
+`ladder_step_f2`: csrc/ladder.cu, one thread per lane element over
+csrc/jac.cuh); the bodies below are their plain PyTorch versions.
 `add(exact=True)` composes the collision check from `mul`/`sqr`/`eq_zero`
 around the kernel. The ladders (`scalar_mul`, `scalar_mul_static`,
 `scalar_mul_with_static`) are Python loops over the scalars' bits that make
@@ -153,6 +153,10 @@ def _add_f1_body(folds, topf, *args):
 
 def _add_f2_body(folds, topf, *args):
     return _add_body(folds, topf, *args, f2=True)
+
+
+def _add_core_f1(folds, topf, *args):
+    return _add_core(folds, topf, *args, f2=False)
 
 
 def _add_core_f2(folds, topf, *args):

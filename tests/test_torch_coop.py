@@ -1,18 +1,19 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
-`miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f2`,
-`jac_add_f2`, `g1_win_step`, `g2_win_step`, `f2mul`, `f2sqr`, `f12mul`, the
-inversion chains `inv_w4` and `inv_bin` and hash-to-G2's ratio chain (two
-programs, its table and its window) run on
-the card as programs of warp jobs (csrc/coop.cuh), traced from their
+`miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f1`,
+`jac_add_f1`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`, `g2_win_step`,
+`f2mul`, `f2sqr`, `f12mul`, the inversion chains `inv_w4` and `inv_bin`
+and hash-to-G2's ratio chain (two programs, its table and its window) run
+on the card as programs of warp jobs (csrc/coop.cuh), traced from their
 plain bodies. Here each encoded program is executed on CPU tensors
 job by job with the plain Fp bodies, stage by stage with its row reuse,
 and held limb for limb against the plain body it was traced from; the
 window steps' programs (their arithmetic without the selects), over G1
 and G2, with their block-uniform epilogue against the whole plain body,
-on every digit and infinity on either side, and `jac_add_f2`'s with its
-epilogue against `_add_f2_body`, with P1, P2, both or neither at
-infinity; the ratio chain's table program, then its window program once
+on every digit and infinity on either side, and `jac_add_f1`'s and
+`jac_add_f2`'s with their epilogue against `_add_f1_body` and
+`_add_f2_body`, with P1, P2, both or neither at infinity; the ratio
+chain's table program, then its window program once
 a digit, against `_ratio_chain_body` and the op-by-op chain, whose value
 is the host's w^((p^2 - 9) / 16).
 A square is a job of its own kind, not a product of an operand with
@@ -51,8 +52,10 @@ BODIES = {
     "miller_add_iter": (pairing._add_iter_body, [F12, F2, F2, F2, F2, F2, (), ()],
                         [3, 1, 1, 2, 1, 1, 1, 1], 81),
     "cyc_sqr": (pairing._cyc_sqr_body, [F12], [3], 18),
+    "jac_dbl_f1": (J._dbl_f1_body, [(), (), ()], [1, 2, 1], 7),
     "jac_dbl_f2": (J._dbl_f2_body, [F2, F2, F2], [1, 2, 1], 16),
     # the add's arithmetic: P1, P2 -> P1 + P2
+    "jac_add_f1": (J._add_core_f1, [()] * 6, [1, 2, 1, 1, 1, 2], 16),
     "jac_add_f2": (J._add_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 2], 43),
     "g1_win_step": (chains._win_core_f1, [()] * 6, [1, 2, 1, 1, 1, 1], 30),
     # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
@@ -69,6 +72,7 @@ BODIES = {
 }
 # the kernels' sources, by the program each launches
 SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_sqr": "miller.cu",
+           "jac_dbl_f1": "jac_dbl.cu", "jac_add_f1": "jac_add.cu",
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
            "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
@@ -163,14 +167,18 @@ def test_win_step_program_with_epilogue_equals_plain_body(name):
         assert torch.equal(g, w)
 
 
-def test_add_program_with_epilogue_equals_plain_body():
-    """jac_add_f2 as its kernel computes it: the program maps (P1, P2) to
-    the sum, and the epilogue selects per lane element (`_add_select`):
-    P1, P2, both or neither at infinity, each on 2 x 3 lane elements."""
+@pytest.mark.parametrize("name", ["jac_add_f1", "jac_add_f2"])
+def test_add_program_with_epilogue_equals_plain_body(name):
+    """An add as its kernel computes it, over G1 and G2: the program maps
+    (P1, P2) to the sum, and the epilogue selects per lane element
+    (`_add_select`): P1, P2, both or neither at infinity, each on 2 x 3
+    lane elements."""
+    f2 = name == "jac_add_f2"
+    comp, nc = (F2, 2) if f2 else ((), 1)
     rng = np.random.default_rng(2008)
     lead, S = (2,), 3
-    p1 = [lazy(rng, lead, F2, S, t) for t in (1, 2, 1)]
-    p2 = [lazy(rng, lead, F2, S, t) for t in (1, 1, 2)]
+    p1 = [lazy(rng, lead, comp, S, t) for t in (1, 2, 1)]
+    p2 = [lazy(rng, lead, comp, S, t) for t in (1, 1, 2)]
     for e, (inf1, inf2) in enumerate((a, b) for a in (0, 1) for b in (0, 1)):
         k, s = divmod(e, S)
         if inf1:
@@ -178,12 +186,13 @@ def test_add_program_with_epilogue_equals_plain_body():
         if inf2:
             p2[2][k, ..., s] = 0
     c = fp.consts("cpu")
-    want = J._add_f2_body(c["folds"], c["topf"], *p1, *p2)
-    out = coop.run_reference(coop.program(coop.slot("jac_add_f2")),
+    body = J._add_f2_body if f2 else J._add_f1_body
+    want = body(c["folds"], c["topf"], *p1, *p2)
+    out = coop.run_reference(coop.program(coop.slot(name)),
                              torch.cat([rows(a, lead) for a in (*p1, *p2)]),
                              c["folds"], c["topf"])
-    total = [unrows(out[2 * i : 2 * i + 2], lead, F2, S) for i in range(3)]
-    got = J._add_select(p1, p2, total, True)
+    total = [unrows(out[nc * i : nc * (i + 1)], lead, comp, S) for i in range(3)]
+    got = J._add_select(p1, p2, total, f2)
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g, w)
 
@@ -297,13 +306,14 @@ def test_programs_fit_the_constant_bank():
     assert words + digits + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
     # with the ratio chain's table (399 words) and window (68), and its 191
-    # digits, miller_add_iter's 978 words, f2mul's 42 and f2sqr's 25:
-    # 11,473 words of fourteen programs, 13,359 of the bank's words with
-    # the digits and the tables, 3,025 left
-    assert (words, digits, coop.TABLES) == (11473, 191, 1695)
-    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 3025
+    # digits, miller_add_iter's 978 words, f2mul's 42, f2sqr's 25,
+    # jac_dbl_f1's 73 and jac_add_f1's 125: 11,671 words of sixteen
+    # programs, 13,557 of the bank's words with the digits and the tables,
+    # 2,827 left
+    assert (words, digits, coop.TABLES) == (11473 + 198, 191, 1695)
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 2827
     fake = dict(coop.PROGRAMS)
-    fake[14], fake[15] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[16], fake[17] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -331,12 +341,14 @@ def test_header_mirrors_python():
         assert f"lh::coop::{key}_WARPS" in src and f"lh::coop::{key}_SLOT" in src
         assert not re.search(r"constexpr int \w*WARPS = \d", src)
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
-    # Y3, Z3; the same with xQ, yQ; f -> f; X, Y, Z -> X3, Y3, Z3; P1, P2
-    # -> P1 + P2; acc, E -> [4]acc, [4]acc + E over G1 and G2; a, b -> a b
+    # Y3, Z3; the same with xQ, yQ; f -> f; X, Y, Z -> X3, Y3, Z3 and P1,
+    # P2 -> P1 + P2 over G1 and G2; acc, E -> [4]acc, [4]acc + E over G1
+    # and G2; a, b -> a b
     # over Fp2 and Fp12; a -> a^2 over Fp2; a, 1 -> a^(p-2); w, 1 -> 16
     # entries; acc, E -> acc^4 E), as the sources' static_asserts check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("miller_add_iter", 24, 18),
                               ("f2mul", 4, 2), ("f2sqr", 2, 2), ("cyc_sqr", 12, 12),
+                              ("jac_dbl_f1", 3, 3), ("jac_add_f1", 6, 3),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
                               ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1),
