@@ -16,20 +16,25 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the fifteen cooperative kernels (csrc/coop.cuh:
+   function; for the sixteen cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
-   jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul, f2sqr, f12mul,
-   the Fermat inversions inv_w4, inv_bin and hash-to-G2's ratio_chain),
+   add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul,
+   f2sqr, f12mul, the Fermat inversions inv_w4, inv_bin and hash-to-G2's
+   ratio_chain),
    their ptxas line, the dynamic shared memory their library launches
    them with (held equal to their programs' layout) and their programs'
    shape (stages, jobs, rows, warps, words).
-3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 against their
-   plain bodies on seeded operands at [36,4096], [2,36,128], [36,4097];
-   the cooperative jac_dbl_f1 and jac_add_f1 (slice 12) also at the
-   commit MSM's lane-sum widths 2,048 ... 1 as [36, S] (the add with P1,
-   P2, both or neither at infinity at each width, below 4 lanes a hold per
-   S of the cases; the doubling once a width), in device ms and bound at
-   1 ... 4,096 lanes with the latency floor at S = 1; slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1,
+3. kernels: mul, sqr, canon_reduce, jac_dbl_f1, jac_add_f1 and
+   add_exact_f1 against their plain bodies on seeded operands at
+   [36,4096], [2,36,128], [36,4097]; the cooperative jac_dbl_f1,
+   jac_add_f1 (slice 12) and add_exact_f1 (slice 13) also at the commit
+   MSM's lane-sum widths 2,048 ... 1 as [36, S] (the add with P1, P2,
+   both or neither at infinity at each width, below 4 lanes a hold per S
+   of the cases; the exact add with its planted lanes of real points,
+   EXACT_CASES, the same way, and the lanes that took each of its five
+   cases counted over all its holds, each case at least once; the
+   doubling once a width), in device ms and bound at 1 ... 4,096 lanes
+   with the latency floor at S = 1; slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1,
    ladder_step_f2, ubench_mul and ubench_mul_chain (R = 3) on seeded
    operands at those widths and at S = 1 and 2 (infinity lanes on both
    sides of a ladder step, its bit row all 0, all 1 and mixed), timed at
@@ -72,7 +77,7 @@ non-zero before the last line:
    KZG kernel must have run there with no plain body on a CUDA tensor.
    Then, apart: the per-MSM and per-pairing-check launch counts against
    the counts read off the code (each canonical() one `canonical`
-   launch), the pairing seam (device against host, the same verdict), one
+   launch, each G1 exact add one `add_exact_f1`), the pairing seam (device against host, the same verdict), one
    commitment and one pairing check profiled for their device share and
    torch ops.
 6. bls: jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step against their
@@ -98,7 +103,8 @@ non-zero before the last line:
    the launches per verify must equal the reference's dispatch census op
    by op at buckets 128 and 1024, each Fermat inversion's chain and
    hash-to-G2's ratio chain in one launch (inv_w4, inv_bin, ratio_chain),
-   each canon_reduce a canonical launch. The wall per verify split into
+   the G1 exact add in one (add_exact_f1), each canon_reduce a canonical
+   launch. The wall per verify split into
    host packing and device, the sets/s at 1024, and the device share of
    one 1024 verify from the profiler, with each kernel's device ms in it
    (`device_totals`: each device event counted once, beside the sum over
@@ -122,8 +128,8 @@ non-zero before the last line:
    ms per launch and per element-product (lighthouse_tpu_torch.tools.
    ubench_mul.run), there and at 1,024 lanes.
 8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
-   slice 4's paths' for theirs, 0 for canon_reduce, which no path
-   launches; launches_kzg: phase 5's; launches_slice4:
+   slice 4's paths' for theirs, 0 for canon_reduce and jac_add_f1, which
+   no path launches; launches_kzg: phase 5's; launches_slice4:
    phase 7's; row 23 of the TPU-kernel table is two entries,
    ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
@@ -170,6 +176,10 @@ KERNELS = {
     "canonical": (CSRC + "fp_canon.cu", "lighthouse_tpu/ops/lane/fp.py:488"),
     "jac_dbl_f1": (CSRC + "jac_dbl.cu", "lighthouse_tpu/ops/lane/jacobian.py:163"),
     "jac_add_f1": (CSRC + "jac_add.cu", "lighthouse_tpu/ops/lane/jacobian.py:165"),
+    # the G1 exact add in one launch: the reference's add(FP1, ..., exact=True)
+    # (jacobian.py:267) over the Pallas kernels mul, sqr, canon_reduce
+    # (fp.py:440, :441, :444), jac_dbl_f1 and jac_add_f1 (jacobian.py:163, :165)
+    "add_exact_f1": (CSRC + "jac_add.cu", "lighthouse_tpu/ops/lane/jacobian.py:267"),
     "reduce_light": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/fp.py:442"),
     "f2mul": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/tower.py:217"),
     "f2sqr": (CSRC + "tower.cu", "lighthouse_tpu/ops/lane/tower.py:218"),
@@ -198,15 +208,18 @@ KERNELS = {
     # `f2mul` (tower.py:217-218) that htc.ratio_chain launched op by op
     "ratio_chain": (CSRC + "htc.cu", "lighthouse_tpu/ops/lane/htc.py:98"),
 }
-# the kernels of the KZG path (slices 1, 2, 7 and 11), of the BLS main path
-# (slices 1-3, 7, 9 and 11) and of slice 4's paths (the ladders, the unfused
-# Miller doubling, the microbenchmark); canon_reduce, whose body runs inside
-# canonical since slice 11, is held but launched on no path
+# the kernels of the KZG path (slices 1, 2, 7, 11 and 13), of the BLS main
+# path (slices 1-3, 7, 9, 11 and 13) and of slice 4's paths (the ladders,
+# the unfused Miller doubling, the microbenchmark); canon_reduce, whose
+# body runs inside canonical since slice 11, and jac_add_f1, whose program
+# runs inside add_exact_f1 since slice 13 (no path makes a G1 add that is
+# not exact), are held but launched on no path. sqr runs on the BLS path
+# only: the KZG path's (the MSM's collision checks) went into add_exact_f1
 _PAIRING = ("reduce_light", "f2mul", "f2sqr", "f6mul", "f12mul", "miller_dbl_iter",
             "miller_add_iter", "cyc_sqr", "inv_bin")
-KZG_KERNELS = ("mul", "sqr", "canonical", "jac_dbl_f1", "jac_add_f1", *_PAIRING)
-BLS_KERNELS = (*KZG_KERNELS, "jac_dbl_f2", "jac_add_f2", "g1_win_step", "g2_win_step",
-               "inv_w4", "ratio_chain")
+KZG_KERNELS = ("mul", "canonical", "jac_dbl_f1", "add_exact_f1", *_PAIRING)
+BLS_KERNELS = (*KZG_KERNELS, "sqr", "jac_dbl_f2", "jac_add_f2", "g1_win_step",
+               "g2_win_step", "inv_w4", "ratio_chain")
 SLICE4_KERNELS = ("norm3", "f12sqr", "f12mul_034", "ladder_step_f1", "ladder_step_f2",
                   "ubench_mul", "ubench_mul_chain")
 # canonical() is one kernel, `canonical`, where the reference launches
@@ -214,9 +227,14 @@ SLICE4_KERNELS = ("norm3", "f12sqr", "f12mul_034", "ladder_step_f1", "ladder_ste
 # canon_reduce launch of a count made op by op is one canonical launch,
 # and canon_reduce is held on the operands canonical met (the same input)
 FUSED = {"canon_reduce": "canonical"}
-OFF_PATH = tuple(FUSED)
+# The G1 exact add is one kernel, `add_exact_f1`, where the reference
+# launches jac_add_f1, the collision check's 2 sqr and 6 mul, its 2
+# canonical() (canon_reduce) and a jac_dbl_f1: a count made op by op folds
+# those into one add_exact_f1 launch per G1 exact add
+EXACT_ADD = {"jac_add_f1": 1, "sqr": 2, "mul": 6, "canon_reduce": 2, "jac_dbl_f1": 1}
+OFF_PATH = (*FUSED, "jac_add_f1")
 assert sorted(BLS_KERNELS + SLICE4_KERNELS + OFF_PATH) == sorted(KERNELS)
-SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1")
+SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1", "add_exact_f1")
 # the inversions, held on seeded operands at SHAPES and CHAIN_S
 CHAIN_KERNELS = ("inv_w4", "inv_bin")
 CHAIN_S = (1, 2, 1024)
@@ -252,25 +270,30 @@ def _chain_launches() -> dict:
             "ratio_chain": {"f2sqr": 1 + 2 * htc._NW, "f2mul": 2 + htc._NW}}
 
 
-def _with_chains(per_op: dict, chains: dict) -> dict:
+def _with_chains(per_op: dict, chains: dict, exact_adds: int = 0) -> dict:
     """Launches counted op by op, each of `chains` ({name: calls}) folded
-    into one launch of its kernel, and each canonical() into one (FUSED)."""
+    into one launch of its kernel, each of `exact_adds` G1 exact adds into
+    one add_exact_f1 launch (EXACT_ADD), and each canonical() into one
+    (FUSED)."""
     out = dict(per_op)
     for chain, n in chains.items():
         for op, per in _chain_launches()[chain].items():
             out[op] -= n * per
         out[chain] = out.get(chain, 0) + n
+    for op, per in EXACT_ADD.items():
+        out[op] = out.get(op, 0) - exact_adds * per
+    out["add_exact_f1"] = out.get("add_exact_f1", 0) + exact_adds
     for op, fused in FUSED.items():
         out[fused] = out.get(fused, 0) + out.pop(op, 0)
     return {k: v for k, v in out.items() if v}
 
 
 # launches per msm_g1 at a 4096-lane bucket, read off the code
-# (ops/lane/msm.py): 256 window doublings and 90 exact adds, each a
-# jac_add_f1, 2 sqr, 6 mul, the collision check's 2 canonical() and a
-# jac_dbl_f1
+# (ops/lane/msm.py): 256 window doublings and 90 exact adds, each, op by
+# op, a jac_add_f1, 2 sqr, 6 mul, the collision check's 2 canonical() and
+# a jac_dbl_f1; each exact add one add_exact_f1
 PER_MSM = _with_chains({"jac_add_f1": 90, "sqr": 180, "mul": 540, "canon_reduce": 180,
-                        "jac_dbl_f1": 346}, {})
+                        "jac_dbl_f1": 346}, {}, exact_adds=90)
 
 
 def check_launches() -> dict:
@@ -293,7 +316,7 @@ COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "ja
              "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
              "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
              "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower",
-             "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add"}
+             "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add", "add_exact_f1": "jac_add"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
 # f2mul's and f2sqr's widths in a bucket-1024 verify beyond those: 2,048
@@ -303,11 +326,21 @@ F2_S = (*REDESIGNED_S, 2048, (4, 2048))
 F2_KERNELS = ("f2mul", "f2sqr")
 # the G1 group kernels' widths in a 4,096-lane commit MSM (ops/lane/msm.py):
 # its walk at 4,096 lanes, its lane sum at 2,048 ... 1; held there (the add
-# on every infinity combination, ADD_COMBOS) and read in device ms
+# on every infinity combination, ADD_COMBOS; the exact add on its planted
+# lanes, EXACT_CASES) and read in device ms
 MSM_S = tuple(1 << i for i in range(13))
-MSM_KERNELS = ("jac_dbl_f1", "jac_add_f1")
+MSM_KERNELS = ("jac_dbl_f1", "jac_add_f1", "add_exact_f1")
 # (digit, P1 at infinity, P2 at infinity): an add's four cases
 ADD_COMBOS = [(0, a, b) for a in (0, 1) for b in (0, 1)]
+# the exact add's planted lanes (P1, P2), real points from seeded scalars
+# (random operands never collide): P + P with one Z; P + P with Z2 = l Z1
+# (H === 0, its limbs not 0); P + (-P) with one Z and with Z2 = l Z1;
+# infinity as P1, as P2 and as both; P + Q
+EXACT_CASES = ("dbl", "dbl_rescaled", "neg", "neg_rescaled", "inf_p1", "inf_p2", "inf_both",
+               "sum")
+# the exact add's five cases, in the order its select takes them
+# (jacobian._add_exact_select)
+EXACT_BRANCHES = ("double", "infinity", "p2", "p1", "sum")
 # the dependent multiply-adds of one warp product (a column's 36, a fold's
 # 38), at 4 cycles each: a stage of a cooperative program at one lane
 # element takes at least this many cycles of the SM clock
@@ -347,10 +380,12 @@ def verify_launches(bucket: int) -> dict:
     """The reference's census with each Fermat inversion in one launch:
     3 chains.inv (_to_affine_g1 and _to_affine_g2 at the bucket's width,
     finish_phase's _to_affine_g2 at 1 lane) and final_exp's fp.inv; with
-    hash-to-G2's ratio chain in one launch; and with each canon_reduce a
-    canonical launch (1,095 / 1,134 launches at buckets 128 / 1024)."""
+    hash-to-G2's ratio chain in one launch; with the one G1 exact add
+    (scalar_mul_w2's table for [r]apk, at the bucket's width) one
+    add_exact_f1; and with each canon_reduce a canonical launch (1,084 /
+    1,123 launches at buckets 128 / 1024)."""
     return _with_chains(REFERENCE_PER_VERIFY[bucket],
-                        {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1})
+                        {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1}, exact_adds=1)
 # launches on slice 4's paths: 64-bit G1 and G2 ladders (the G2 one with
 # the static |u| = 0xd201000000010000 on its chain, popcount 6) at bucket
 # 1024; the unfused doubling of a 128-lane Miller loop (63 iterations); the
@@ -406,6 +441,9 @@ def _ops_counts():
     lazy = W
     dbl = 5 * sqr + 2 * mul + 3 * rl + 14 * lazy
     add = 5 * sqr + 11 * mul + 4 * rl + 16 * lazy + 3 * W + 2 * W  # + selects, Z tests
+    # the exact add: the add, the doubling, H and R (a lazy subtract each),
+    # their canonical() and zero tests, the second select
+    exact = add + dbl + 2 * (lazy + canon + ladder + W) + 3 * W
     f2sqr = 2 * mul + 3 * lazy
     f2mul = 3 * mul + 2 * rl + 5 * lazy
     dbl_f2 = 5 * f2sqr + 2 * f2mul + 6 * rl + 28 * lazy
@@ -425,7 +463,7 @@ def _ops_counts():
     return {
         "mul": mul, "sqr": sqr, "canon_reduce": canon, "canonical": canon + ladder,
         "jac_dbl_f1": dbl,
-        "jac_add_f1": add, "reduce_light": rl, "f2mul": f2mul, "f2sqr": f2sqr,
+        "jac_add_f1": add, "add_exact_f1": exact, "reduce_light": rl, "f2mul": f2mul, "f2sqr": f2sqr,
         "f6mul": f6mul, "f12mul": f12mul,
         "miller_dbl_iter": dbl_step + f12sqr + m034,
         "miller_add_iter": add_step + m034,
@@ -493,7 +531,7 @@ def _op(name: str):
     return {
         "mul": fp.mul, "sqr": fp.sqr, "canon_reduce": fp.canon_reduce,
         "canonical": fp.canonical_op,
-        "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1,
+        "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1, "add_exact_f1": J._add_exact_f1,
         "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
         "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
         "reduce_light": fp.reduce_light, "f2mul": tower.f2mul, "f2sqr": tower.f2sqr,
@@ -574,7 +612,9 @@ def _inputs(rng, shape, kind, combos=None):
     (structural infinity) on patterned lanes; lanes 0.. take `combos`
     (digit, P1 at infinity, P2 at infinity), by default WIN_COMBOS where
     S holds them all; P1 is the first point, P2 the second or every table
-    entry."""
+    entry. The exact add's: the add's, with lanes 0.. planted with
+    `combos`, cases of EXACT_CASES (by default all of them), on every
+    element of the stack."""
     from lighthouse_tpu_torch.crypto.bls.params import P
     from lighthouse_tpu_torch.ops.lane import fp
 
@@ -604,6 +644,12 @@ def _inputs(rng, shape, kind, combos=None):
         a = t(canon())
         a[..., 0] = 0
         return [a]
+    if kind == "add_exact_f1":  # the add's operands, the planted lanes first
+        args = _inputs(rng, shape, "jac_add_f1", combos=[])
+        for i, case in enumerate(EXACT_CASES if combos is None else combos):
+            for arg, v in zip(args, _exact_case(rng, case), strict=True):
+                arg[..., i] = torch.from_numpy(fp.pack([v])[:, 0]).to(dev)
+        return args
     lanes = torch.arange(S, device=dev)
     if combos is None:
         combos = WIN_COMBOS if S >= len(WIN_COMBOS) else []
@@ -629,6 +675,51 @@ def _inputs(rng, shape, kind, combos=None):
     dig = t(rng.integers(0, 4, size=(*shape[: -2 - (kind == "g2_win_step")], 1, S)))
     dig[..., :n] = torch.tensor([c[0] for c in combos], dtype=torch.int32, device=dev)
     return pts + table[0] + table[1] + table[2] + [dig]
+
+
+def _exact_case(rng, case: str) -> tuple:
+    """The Jacobian (X1, Y1, Z1, X2, Y2, Z2), ints mod p, of planted case
+    `case` of EXACT_CASES: P and Q seeded multiples of the generator, P1 =
+    P under a seeded Z, P2 under Z2 = l Z1 (or Z2 = Z1); infinity: Z = 0
+    under a point's X and Y."""
+    from lighthouse_tpu_torch.crypto.bls import curve as C
+    from lighthouse_tpu_torch.crypto.bls.params import P, R
+
+    def scalar():
+        return int.from_bytes(rng.bytes(32), "big") % R or 1
+
+    def unit():
+        return int.from_bytes(rng.bytes(48), "big") % (P - 1) + 1
+
+    def jac(pt, z):
+        return (pt[0] * z * z % P, pt[1] * z * z * z % P, z)
+
+    p, q = C.g1_mul(C.G1_GEN, scalar()), C.g1_mul(C.G1_GEN, scalar())
+    z, lam = unit(), unit()
+    p1 = jac(p, z)
+    p2 = {"dbl": jac(p, z), "dbl_rescaled": jac(p, z * lam % P),
+          "neg": jac(C.g1_neg(p), z), "neg_rescaled": jac(C.g1_neg(p), z * lam % P)
+          }.get(case, jac(q, lam))
+    if case in ("inf_p1", "inf_both"):
+        p1 = (*p1[:2], 0)
+    if case in ("inf_p2", "inf_both"):
+        p2 = (*p2[:2], 0)
+    return (*p1, *p2)
+
+
+def exact_branches(args) -> dict:
+    """How many lane elements of the exact add's operands take each of its
+    five cases (EXACT_BRANCHES), from its plain pieces on their device."""
+    from lighthouse_tpu_torch.ops.lane import fp, jacobian as J
+
+    c = fp.consts(args[0].device)
+    out = J._add_exact_core_f1(c["folds"], c["topf"], *args)
+    p1_inf, p2_inf, h_zero, r_zero = J._add_exact_flags(
+        c["folds"], c["topf"], args[2], args[5], out[6], out[7])
+    neither = ~(p1_inf | p2_inf)
+    takes = (neither & h_zero & r_zero, neither & h_zero & ~r_zero, p1_inf,
+             ~p1_inf & p2_inf, neither & ~h_zero)
+    return {b: int(m.sum()) for b, m in zip(EXACT_BRANCHES, takes, strict=True)}
 
 
 # slice 4's seeded holds: the phase-3 shapes, and 1 and 2 lanes
@@ -949,19 +1040,23 @@ def _sm_clock_mhz() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
 
 
-def _msm_width_holds(rng, name: str) -> int:
+def _msm_width_holds(rng, name: str, branches: dict) -> int:
     """A G1 group kernel against its plain body on seeded operands at the
     MSM's widths below 4,096 (MSM_S), in the lane sum's layout [36, S]: the
-    add on each of ADD_COMBOS (below 4 lanes, a hold per S of them), the
-    doubling once a width on the default infinity pattern. Returns the max
-    |difference| (0)."""
+    add on each of ADD_COMBOS, the exact add on each of EXACT_CASES (where
+    S holds fewer, a hold per S of them), the doubling once a width on the
+    default infinity pattern. The exact add's lanes are counted by case
+    into `branches`. Returns the max |difference| (0)."""
     err = 0
+    cases = {"jac_add_f1": ADD_COMBOS, "add_exact_f1": EXACT_CASES}.get(name)
     for S in MSM_S[:-1]:
-        chunks = ([ADD_COMBOS[i : i + S] for i in range(0, len(ADD_COMBOS), S)]
-                  if name == "jac_add_f1" else [None])
+        chunks = [cases[i : i + S] for i in range(0, len(cases), S)] if cases else [None]
         for combos in chunks:
             args = _inputs(rng, (36, S), name, combos=combos)
             err = max(err, _hold(name, args, f"S={S} {combos or 'default pattern'}"))
+            if name == "add_exact_f1":
+                for b, n in exact_branches(args).items():
+                    branches[b] += n
     return err
 
 
@@ -979,6 +1074,8 @@ def _widths_ms(name: str, main, widths=REDESIGNED_S) -> dict:
         cycles = CANON_CHAIN_OPS * 4
     else:
         cycles = coop.kernel_stats(name)["stages"] * JOB_CHAIN_CYCLES
+        if name == "add_exact_f1":  # then its zero tests, canonical()'s chain
+            cycles += CANON_CHAIN_OPS * 4
     out = {"latency_floor_ms_S1": cycles / (_sm_clock_mhz() * 1e3)}
     for w in widths:
         args = [(_stack(a, *w) if isinstance(w, tuple) else a[..., :w]).contiguous()
@@ -1001,22 +1098,32 @@ def phase_kernels() -> dict:
 
     rng = np.random.default_rng(SEED)
     out = {}
+    branches = dict.fromkeys(EXACT_BRANCHES, 0)
     for name in SEEDED:
         max_err = 0
         for shape in SHAPES:
             args = _inputs(rng, shape, name)
             max_err = max(max_err, _hold(name, args, str(shape)))
+            if name == "add_exact_f1":
+                for b, n in exact_branches(args).items():
+                    branches[b] += n
             if shape == SHAPES[0]:
                 timing, main = _time(name, args), args
         if name in MSM_KERNELS:
-            max_err = max(max_err, _msm_width_holds(rng, name))
+            max_err = max(max_err, _msm_width_holds(rng, name, branches))
             timing.update(_widths_ms(name, main, MSM_S))
         out[name] = dict(max_abs_err=max_err, **timing)
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             shapes="36x4096,2x36x128,36x4097"
             + (",S=" + "|".join(map(str, MSM_S[:-1])) if name in MSM_KERNELS else ""),
-            operands="seeded" + ("(every infinity combination)" if name == "jac_add_f1" else ""),
+            operands="seeded" + {"jac_add_f1": "(every infinity combination)",
+                                 "add_exact_f1": "(planted: " + ",".join(EXACT_CASES) + ")"
+                                 }.get(name, ""),
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+    # every case of the exact add's select taken on some lane it was held on
+    say("kernel", name="add_exact_f1", lanes_by_branch=json.dumps(branches, separators=(",", ":")))
+    if not all(branches.values()):
+        raise AssertionError(f"add_exact_f1: a case of its select was never taken: {branches}")
 
     _slice4_holds(rng, out)
     _chain_holds(rng, out)
@@ -1068,9 +1175,11 @@ def phase_kernels() -> dict:
     # canonical(): one launch since slice 11, where canon_reduce's launch
     # fed 8 ripples of 37 small torch ops; at the MSM's width, per MSM
     c = out["canonical"]
+    # (none an MSM since slice 13: its exact adds test H and R inside
+    # add_exact_f1)
     say("glue", canonical_device_ms_S4096=f"{c['ms']:.5f}",
-        canonical_call_ms_S4096=f"{c['call_ms']:.5f}", per_msm=PER_MSM["canonical"],
-        per_msm_device_ms=f"{c['ms'] * PER_MSM['canonical']:.3f}")
+        canonical_call_ms_S4096=f"{c['call_ms']:.5f}", per_msm=PER_MSM.get("canonical", 0),
+        per_msm_device_ms=f"{c['ms'] * PER_MSM.get('canonical', 0):.3f}")
 
     # a small input against the host group law (the port's _msm_host)
     G = (G1X, G1Y)

@@ -379,21 +379,23 @@ __device__ __forceinline__ bool outs_zero(const int* prog, const int* smem, int 
   return !__syncthreads_or(nz);
 }
 
-// The point of lane element (k, s) into (ox, oy, oz): where `copy`
-// (uniform over the block), the same rows of (sx, sy, sz) in global
-// memory, else the program's outputs first .. first + 3 C - 1. Constant
-// pointer picks: a dynamic index into an array of pointers would put it
-// on the stack.
+// The point of lane element (k, s) into (ox, oy, oz): where `zero`
+// (uniform over the block, as `copy`), infinity (every limb 0); where
+// `copy`, the same rows of (sx, sy, sz) in global memory, else the
+// program's outputs first .. first + 3 C - 1. Constant pointer picks: a
+// dynamic index into an array of pointers would put it on the stack.
 template <int NW, int C>
 __device__ __forceinline__ void store_point(const int* prog, const int* smem, int first,
                                             bool copy, const int* sx, const int* sy,
                                             const int* sz, int* ox, int* oy, int* oz,
-                                            long k, long s, int S) {
+                                            long k, long s, int S, bool zero = false) {
   for (int t = threadIdx.x; t < 3 * C * W; t += NW * 32) {
     const int o = t / W, i = t - o * W, c = o / C;  // coordinate c, component o % C
     const long a = at(C, o % C, i, k, s, S);
     (c == 0 ? ox : (c == 1 ? oy : oz))[a] =
-        copy ? (c == 0 ? sx : (c == 1 ? sy : sz))[a] : out_limb(prog, smem, NW, first + o, i);
+        zero ? 0
+             : (copy ? (c == 0 ? sx : (c == 1 ? sy : sz))[a]
+                     : out_limb(prog, smem, NW, first + o, i));
   }
 }
 

@@ -28,35 +28,17 @@
 // topfold vector, KP and the ladder in constant memory (every thread of a
 // warp reads the same entry at once), coalesced loads and stores.
 //
-// Signed arithmetic as the plain body's: `>>` on int is arithmetic and
-// `& MASK` takes the two's-complement low bits (negative differences in
-// the ladder), as torch's and jnp's shifts and masks do. No sum wraps on
-// the window the reference's limb-bounds certificate checks at
-// canonical() (`canonical.ripple`: v + KP in (0, p * 2^7)).
-#include "fp_lane.cuh"
+// The ripples and the ladder are csrc/canon.cuh's `canonical_body` in
+// its restoring form (the plain body's); csrc/jac_add.cu's `add_exact_f1`
+// runs its signed form, on its own copy of the tables.
+#include "canon.cuh"
 
 namespace {
 
-constexpr int W37 = lh::W + 1;
-constexpr int LADDER_ROUNDS = 7;  // fp._LADDER_ROUNDS: values < p * 2^7
-
 // KP [37] and PK_LADDER [7, 37] (row k: p * 2^k), row-major int32, from
 // ops/lane/fp.py through lh_fp_canon_init
-static __constant__ __align__(16) int c_kp37[W37];
-static __constant__ __align__(16) int c_pk_ladder[LADDER_ROUNDS * W37];
-
-// `_ripple_carry` in place: s = limb + carry, carry = s >> B, limb = s &
-// MASK, from limb 0 up; returns the carry out of the top limb.
-__device__ __forceinline__ int ripple(int* v) {
-  int carry = 0;
-#pragma unroll
-  for (int i = 0; i < W37; ++i) {
-    const int s = v[i] + carry;
-    carry = s >> lh::B;
-    v[i] = s & lh::MASK;
-  }
-  return carry;
-}
+static __constant__ __align__(16) int c_kp37[lh::W37];
+static __constant__ __align__(16) int c_pk_ladder[lh::LADDER_ROUNDS * lh::W37];
 
 __global__ void __launch_bounds__(lh::THREADS)
     k_canon_reduce(const int* __restrict__ x, int* __restrict__ out, int K,
@@ -74,22 +56,9 @@ __global__ void __launch_bounds__(lh::THREADS)
                 int S) {
   long base;
   if (!lh::elem_index(K, S, &base)) return;
-  int v[W37];
+  int v[lh::W37];
   lh::load_elem(v, x, base, S);
-  lh::canon_reduce_body(v);
-  v[lh::W] = 0;
-#pragma unroll
-  for (int i = 0; i < W37; ++i) v[i] += c_kp37[i];
-  ripple(v);
-#pragma unroll
-  for (int k = LADDER_ROUNDS - 1; k >= 0; --k) {
-    int d[W37];
-#pragma unroll
-    for (int i = 0; i < W37; ++i) d[i] = v[i] - c_pk_ladder[k * W37 + i];
-    const bool keep = ripple(d) >= 0;
-#pragma unroll
-    for (int i = 0; i < W37; ++i) v[i] = keep ? d[i] : v[i];
-  }
+  lh::canonical_body<lh::Ladder::kRestoring, const int*>(v, c_kp37, c_pk_ladder, lh::c_folds + 40);
   lh::store_elem(out, v, base, S);
 }
 

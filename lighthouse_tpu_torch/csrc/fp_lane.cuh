@@ -173,17 +173,27 @@ __device__ __forceinline__ void reduce_light_body(int* x) {
   norm<W, RL_FOLD_B>(x);
 }
 
-// `_canon_reduce_body`, in place: open passes and four single-row folds.
-__device__ __forceinline__ void canon_reduce_body(int* x) {
+// `fold<W, 40>` through a FOLDS column read at col[i * NFOLD].
+template <class Col>
+__device__ __forceinline__ void fold_col(const int* x, int* out, Col col) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = (i < FOLD_AT ? x[i] : 0) + col[i * NFOLD] * x[FOLD_AT];
+}
+
+// `_canon_reduce_body`, in place: open passes and four single-row folds
+// through FOLDS column 40, at `f40` (default: the constant bank's; a
+// cooperative kernel passes its block's copy in shared memory).
+template <class Col = const int*>
+__device__ __forceinline__ void canon_reduce_body(int* x, Col f40 = c_folds + 40) {
   int t[W];
   norm<W, CANON_ENTRY, true>(x);
-  fold<W, 40>(x, t);
+  fold_col(x, t, f40);
   norm<W, CANON_FOLD_A, true>(t);
-  fold<W, 40>(t, x);
+  fold_col(t, x, f40);
   norm<W, CANON_FOLD_B, true>(x);
-  fold<W, 40>(x, t);
+  fold_col(x, t, f40);
   norm<W, CANON_FOLD_C, true>(t);
-  fold<W, 40>(t, x);
+  fold_col(t, x, f40);
   norm<W, CANON_FOLD_D, true>(x);
 }
 

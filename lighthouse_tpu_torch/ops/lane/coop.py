@@ -14,7 +14,7 @@ chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
 fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
 htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
 tower._f2mul_body, tower._f2sqr_body, jacobian._dbl_f1_body,
-jacobian._add_core_f1): run on symbolic rows,
+jacobian._add_core_f1, jacobian._add_exact_core_f1): run on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -33,7 +33,8 @@ the add's structural infinity) is traced without it, and its kernel makes
 the select after the program, in an epilogue: one block is one lane
 element, so the select is uniform over the block and only picks which
 rows the block loads or writes (csrc/chains.cu `win_step`, csrc/jac_add.cu
-`add`).
+`add` and `add_exact`, whose epilogue also runs canonical() on two of the
+program's outputs).
 
 A program holds no loop either: a chain whose steps repeat is two
 programs, one run once and one run a step at a time by its kernel, which
@@ -128,12 +129,20 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # 5; at 4,096 lanes 2 / 3 / 4 / 5 warps take 0.09915 / 0.09506 / 0.09484 /
 # 0.10149 ms, at one lane 0.01634 / 0.01373 / 0.01286 / 0.01198; over the
 # mix 4 warps take the least (7.616 ms, 3 warps 7.641, 5 warps 8.133).
+# add_exact_f1 runs the commit's 90 exact adds (78 at 4,096 lanes, 12 at
+# 2,048 ... 1) and a verify's one at its bucket's width; its 31 jobs take
+# 13 rounds on 3 warps, 10 on 4 and 9 on 5 and 6. On 3 / 4 / 5 / 6 warps
+# one lane takes 0.01954 / 0.01709 / 0.01722 / 0.01698 ms, 128 lanes
+# 0.02026 / 0.01786 / 0.01798 / 0.01770, 4,096 0.15738 / 0.15834 /
+# 0.16669 / 0.17028; over the commit's mix 12.616 / 12.668 / 13.333 /
+# 13.612 ms: 3 and 4 warps within 0.5 %; 4, faster at the verify's widths.
 # Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
             7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
             10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3),
-            13: ("f2sqr", 3), 14: ("jac_dbl_f1", 3), 15: ("jac_add_f1", 4)}
+            13: ("f2sqr", 3), 14: ("jac_dbl_f1", 3), 15: ("jac_add_f1", 4),
+            16: ("add_exact_f1", 4)}
 # kernel -> its programs, where it runs more than one: the ratio chain
 # (csrc/htc.cu) runs the table's once, then the window's once a digit of
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
@@ -368,6 +377,8 @@ def program(slot: int) -> np.ndarray:
         "f2mul": (tower._f2mul_body, (FP2, FP2)),
         # a -> a^2
         "f2sqr": (tower._f2sqr_body, (FP2,)),
+        # P1, P2 -> P1 + P2, [2]P1, H, R (no selection)
+        "add_exact_f1": (jacobian._add_exact_core_f1, (FP,) * 6),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 

@@ -13,10 +13,14 @@ coop.py, the adds' infinity selects in their kernels' epilogue), and so
 does one step of the per-lane dynamic ladder (`ladder_step_f1`,
 `ladder_step_f2`: csrc/ladder.cu, one thread per lane element over
 csrc/jac.cuh); the bodies below are their plain PyTorch versions.
-`add(exact=True)` composes the collision check from `mul`/`sqr`/`eq_zero`
-around the kernel. The ladders (`scalar_mul`, `scalar_mul_static`,
-`scalar_mul_with_static`) are Python loops over the scalars' bits that make
-the reference's scan + cond calls, call for call.
+`add(exact=True)` over G1 launches ONE kernel too (`add_exact_f1`,
+csrc/jac_add.cu, cooperative: its program traced from `_add_exact_core_f1`,
+the add, the doubling of P1 and the collision check's H and R in one
+program, the canonical() zero tests and the select in its epilogue); over
+G2 it composes the collision check from `mul`/`sqr`/`eq_zero` around the
+add kernel, as the reference does. The ladders (`scalar_mul`,
+`scalar_mul_static`, `scalar_mul_with_static`) are Python loops over the
+scalars' bits that make the reference's scan + cond calls, call for call.
 
 Points are (X, Y, Z) tuples of lane-major field tensors: Fp [..., W, S],
 Fp2 [..., 2, W, S].
@@ -82,8 +86,11 @@ def _dbl_body(folds, topf, X, Y, Z, f2: bool = False):
     return X3, Y3, Z3
 
 
-def _add_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
-    """add-2007-bl without the infinity selection: the sum's (X3, Y3, Z3)."""
+def _add_parts(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    """add-2007-bl without the infinity selection: the sum's (X3, Y3, Z3),
+    and the exact add's collision check H = U2 - U1 and R = S2 - S1 (lazy;
+    `add(exact=True)`'s mul(X2, Z1Z1) - mul(X1, Z2Z2) and mul(mul(Y2, Z1),
+    Z1Z1) - mul(mul(Y1, Z2), Z2Z2), limb for limb)."""
     S, M, RL = _field(folds, topf, f2)
     Z1Z1 = S(Z1)
     Z2Z2 = S(Z2)
@@ -99,7 +106,12 @@ def _add_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
     X3 = RL(S(r) - J - 2 * V)
     Y3 = RL(M(r, V - X3) - 2 * M(S1, J))
     Z3 = RL(M(RL(S(Z1 + Z2) - Z1Z1 - Z2Z2), H))
-    return X3, Y3, Z3
+    return (X3, Y3, Z3), H, S2 - S1
+
+
+def _add_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    """add-2007-bl without the infinity selection: the sum's (X3, Y3, Z3)."""
+    return _add_parts(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2=f2)[0]
 
 
 def _add_select(p1, p2, total, f2: bool = False):
@@ -117,6 +129,45 @@ def _add_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
     total = _add_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2=f2)
     # structural-infinity selection, inside the kernel
     return _add_select((X1, Y1, Z1), (X2, Y2, Z2), total, f2=f2)
+
+
+def _add_exact_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    """The exact add's arithmetic without its selects: the sum's (X3, Y3,
+    Z3), the doubling of P1 and the collision check's H and R, 8 values.
+    The check takes no product of its own: H and R are linear in the sum's
+    U1, U2, S1, S2."""
+    total, H, R = _add_parts(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2=f2)
+    return (*total, *_dbl_body(folds, topf, X1, Y1, Z1, f2=f2), H, R)
+
+
+def _add_exact_flags(folds, topf, Z1, Z2, H, R, f2: bool = False):
+    """(P1 at infinity, P2 at infinity, H === 0, R === 0), each [..., S]:
+    the structural tests, and canonical() (`fp._canonical_fn`) of H and R
+    with every limb 0, as `eq_zero` tests them."""
+    nc = 2 if f2 else 1
+    h, r = (fp._canonical_fn(folds, topf, v) for v in (H, R))
+    return _is_zero(Z1, nc), _is_zero(Z2, nc), _is_zero(h, nc), _is_zero(r, nc)
+
+
+def _add_exact_select(p1, p2, total, dbl, flags, f2: bool = False):
+    """The reference's exact-add select, in its order: neither point at
+    infinity and H === R === 0 -> the doubling of P1; else neither at
+    infinity and H === 0 -> infinity (zeros); else `_add_select`'s P2, P1
+    or the sum."""
+    nc = 2 if f2 else 1
+    p1_inf, p2_inf, h_zero, r_zero = flags
+    neither = ~(p1_inf | p2_inf)
+    out = _add_select(p1, p2, total, f2=f2)
+    return tuple(
+        _wh(neither & h_zero & r_zero, d, _wh(neither & h_zero, torch.zeros_like(o), o, nc), nc)
+        for d, o in zip(dbl, out)
+    )
+
+
+def _add_exact_body(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2: bool = False):
+    out = _add_exact_core(folds, topf, X1, Y1, Z1, X2, Y2, Z2, f2=f2)
+    flags = _add_exact_flags(folds, topf, Z1, Z2, out[6], out[7], f2=f2)
+    return _add_exact_select((X1, Y1, Z1), (X2, Y2, Z2), out[:3], out[3:6], flags, f2=f2)
 
 
 def _ladder_step_body(folds, topf, X1, Y1, Z1, Xa, Ya, Za, bit, f2: bool = False):
@@ -163,10 +214,19 @@ def _add_core_f2(folds, topf, *args):
     return _add_core(folds, topf, *args, f2=True)
 
 
+def _add_exact_core_f1(folds, topf, *args):
+    return _add_exact_core(folds, topf, *args, f2=False)
+
+
+def _add_exact_f1_body(folds, topf, *args):
+    return _add_exact_body(folds, topf, *args, f2=False)
+
+
 _dbl_f1 = fp.KernelOp(_dbl_f1_body, "jac_dbl_f1", "lh_jac_dbl_f1")
 _dbl_f2 = fp.KernelOp(_dbl_f2_body, "jac_dbl_f2", "lh_jac_dbl_f2")
 _add_f1 = fp.KernelOp(_add_f1_body, "jac_add_f1", "lh_jac_add_f1")
 _add_f2 = fp.KernelOp(_add_f2_body, "jac_add_f2", "lh_jac_add_f2")
+_add_exact_f1 = fp.KernelOp(_add_exact_f1_body, "add_exact_f1", "lh_add_exact_f1")
 _ladder_step_f1 = fp.KernelOp(_ladder_step_f1_body, "ladder_step_f1", "lh_ladder_step_f1")
 _ladder_step_f2 = fp.KernelOp(_ladder_step_f2_body, "ladder_step_f2", "lh_ladder_step_f2")
 
@@ -184,6 +244,7 @@ FP1 = SimpleNamespace(
     ),
     dbl=_dbl_f1,
     addk=_add_f1,
+    add_exact=_add_exact_f1,
     ladder_step=_ladder_step_f1,
 )
 
@@ -278,7 +339,11 @@ def double(ops, p):
 
 def add(ops, p1, p2, exact: bool = False):
     """Fused branchless add; exact=True resolves H == 0 collisions
-    (doubling / infinity) with canonical compares around the kernel."""
+    (doubling / infinity): in one kernel where the namespace has one
+    (`add_exact`, G1), else with canonical compares around the add
+    kernel."""
+    if exact and getattr(ops, "add_exact", None) is not None:
+        return ops.add_exact(*p1, *p2)
     out = ops.addk(*p1, *p2)
     if exact:
         X1, Y1, Z1 = p1

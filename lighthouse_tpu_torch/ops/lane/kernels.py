@@ -39,7 +39,7 @@ SOURCES = {
     "fp_mul": "fp_mul.cu",        # mul, sqr
     "fp_canon": "fp_canon.cu",    # canon_reduce, canonical, norm3
     "jac_dbl": "jac_dbl.cu",      # jac_dbl_f1, jac_dbl_f2
-    "jac_add": "jac_add.cu",      # jac_add_f1, jac_add_f2
+    "jac_add": "jac_add.cu",      # jac_add_f1, jac_add_f2, add_exact_f1
     "tower": "tower.cu",          # reduce_light, f2mul, f2sqr, f6mul, f12mul,
                                   # f12sqr, f12mul_034
     "miller": "miller.cu",        # miller_dbl_iter, miller_add_iter, cyc_sqr
@@ -51,7 +51,7 @@ SOURCES = {
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
 }
-HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh", "coop.cuh")
+HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh", "coop.cuh", "canon.cuh")
 
 # component shape of each field's lane element
 FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)
@@ -69,6 +69,8 @@ ENTRIES = {
     "lh_jac_add_f1": ("jac_add", (FP,) * 6, (FP,) * 3),
     "lh_jac_dbl_f2": ("jac_dbl", (FP2,) * 3, (FP2,) * 3),
     "lh_jac_add_f2": ("jac_add", (FP2,) * 6, (FP2,) * 3),
+    # P1, P2 -> the exact add: the doubling or infinity where H === 0
+    "lh_add_exact_f1": ("jac_add", (FP,) * 6, (FP,) * 3),
     # acc, T1, T2, T3 (a point each), digit -> acc
     "lh_g1_win_step": ("chains", (FP,) * 12 + (ROW,), (FP,) * 3),
     "lh_g2_win_step": ("chains", (FP2,) * 12 + (ROW,), (FP2,) * 3),
@@ -99,8 +101,10 @@ ENTRIES = {
 
 # the tables a library's lh_<lib>_init takes after FOLDS and TOPFM, by their
 # names in ops/lane/fp.py: canonical()'s offset KP [37] and subtract ladder
-# p * 2^k [7, 37]
-INIT_TABLES = {"fp_canon": ("KP_37", "PK_LADDER")}
+# p * 2^k [7, 37] (csrc/canon.cuh), for `canonical` (its constant bank)
+# and for add_exact_f1's zero tests (global memory, copied into each
+# block's shared memory)
+INIT_TABLES = {"fp_canon": ("KP_37", "PK_LADDER"), "jac_add": ("KP_37", "PK_LADDER")}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -2,15 +2,16 @@
 
 Port of lighthouse_tpu/ops/lane/msm.py: per point a 2^w-entry multiples
 table, then a Horner walk over 255/w windows sharing one ladder across the
-batch, then the lane-halving exact sum tree. Every group op is a
-`jac_dbl_f1` / `jac_add_f1` kernel launch; an exact add adds the
-collision check (`mul`, `sqr` and two `canonical` kernels, each
-canonical() one launch) and the doubling it may take; the reference's
-lax.scan loops are Python loops here.
+batch, then the lane-halving exact sum tree. Every group op is one
+kernel launch: a window doubling `jac_dbl_f1`, an exact add
+`add_exact_f1` (the add, its collision check and the doubling it may
+take, where the reference launches `jac_add_f1`, 2 `sqr`, 6 `mul`, 2
+`canon_reduce` and a `jac_dbl_f1`); the reference's lax.scan loops are
+Python loops here.
 
 At a 4096-lane bucket one `msm_g1` makes 90 exact adds (14 table, 64
-windows, 12 lane_sum levels) and 256 window doublings: 90 `jac_add_f1`,
-346 `jac_dbl_f1`, 540 `mul`, 180 `sqr` and 180 `canonical` launches.
+windows, 12 lane_sum levels) and 256 window doublings: 90 `add_exact_f1`
+and 256 `jac_dbl_f1` launches (1,336 op by op).
 """
 
 from __future__ import annotations

@@ -19,13 +19,14 @@ Run on a machine with a CUDA card:
     python -m lighthouse_tpu_torch.tools.coop_warps f2sqr --S 1 512 1024 2048 --warps 1 2 3
     python -m lighthouse_tpu_torch.tools.coop_warps jac_add_f1 --S 1 256 4096 --warps 2 3 4 5
     python -m lighthouse_tpu_torch.tools.coop_warps jac_dbl_f1 --S 1 1024 4096 --warps 1 2 3 4
+    python -m lighthouse_tpu_torch.tools.coop_warps add_exact_f1 --S 1 2048 4096 --warps 3 4 5
 
 Kernels: miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1,
-jac_add_f1, jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul,
-f2sqr, f12mul, inv_w4, inv_bin, ratio_chain (its two programs on one
-warp count). Several widths (--S) and stack depths (--K: operands [K,
-..., S], K x S lane elements) share one build per warp count. The
-seeded operands put no point at infinity.
+jac_add_f1, add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step,
+g2_win_step, f2mul, f2sqr, f12mul, inv_w4, inv_bin, ratio_chain (its two
+programs on one warp count). Several widths (--S) and stack depths (--K:
+operands [K, ..., S], K x S lane elements) share one build per warp
+count. The seeded operands put no point at infinity.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ REPS = 50
 def _ops():
     return {"miller_dbl_iter": pairing._dbl_iter, "miller_add_iter": pairing._add_iter,
             "cyc_sqr": pairing.cyclotomic_sqr,
-            "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1,
+            "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1, "add_exact_f1": J._add_exact_f1,
             "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
             "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
             "f2mul": tower.f2mul, "f2sqr": tower.f2sqr, "f12mul": tower.f12mul,

@@ -5,8 +5,8 @@ policy rejections, one valid 2-set verdict through `local_phase` +
 `finish_phase` on the packed batch cut to its 2 real lanes (against the
 `cpu` backend), the bounded record of verify times, the launches per
 verify at buckets 128 and 1024 equal to the reference's dispatch census op
-by op, each Fermat inversion's chain, hash-to-G2's ratio chain and each
-canonical() in one launch (with shape-only stand-ins for the kernels, as
+by op, each Fermat inversion's chain, hash-to-G2's ratio chain, the G1
+exact add and each canonical() in one launch (with shape-only stand-ins for the kernels, as
 the reference's census runs; tools/verify_census.py).
 `crypto_heavy`: `local_phase` limb-equal to the reference's at 4 lanes, the
 verdict matrix of tests/test_tpu_backend.py on cut lanes, and one batch
@@ -70,16 +70,26 @@ CHAINS_PER_VERIFY = {"inv_w4": 3, "inv_bin": 1, "ratio_chain": 1}
 # launches `canon_reduce` and runs the ripples and the ladder around it as
 # XLA glue: each canon_reduce launch of the census is one canonical launch
 FUSED = {"canon_reduce": "canonical"}
+# The G1 exact add is one kernel in the port, `add_exact_f1`, where the
+# reference launches jac_add_f1, the collision check's 2 sqr and 6 mul, its
+# 2 canonical() (canon_reduce) and a jac_dbl_f1. A verify makes one:
+# scalar_mul_w2's table entry 3P for [r]apk (chains.py), at the bucket's
+# width.
+EXACT_ADD = {"jac_add_f1": 1, "sqr": 2, "mul": 6, "canon_reduce": 2, "jac_dbl_f1": 1}
+EXACT_ADDS_PER_VERIFY = 1
 
 
 def _with_chains(reference: dict) -> dict:
-    """The reference's census with each inversion's chain in one launch
-    and each canonical() in one."""
+    """The reference's census with each inversion's chain in one launch,
+    the G1 exact add in one and each canonical() in one."""
     out = Counter(reference)
     for chain, n in CHAINS_PER_VERIFY.items():
         for op, per in CHAIN_LAUNCHES[chain].items():
             out[op] -= n * per
         out[chain] += n
+    for op, per in EXACT_ADD.items():
+        out[op] -= EXACT_ADDS_PER_VERIFY * per
+    out["add_exact_f1"] += EXACT_ADDS_PER_VERIFY
     for op, fused in FUSED.items():
         out[fused] += out.pop(op)
     return {k: v for k, v in out.items() if v}
@@ -211,23 +221,28 @@ def _census(S: int) -> Counter:
 
 @pytest.mark.parametrize("bucket", [128, 1024])
 def test_launches_per_verify_equal_reference_census(bucket):
-    """The reference's census op by op, each inversion's chain and the
-    ratio chain in one launch: of its 1,539 sqr and 543 mul, 3 sqr and 17
-    mul are left; of its f2sqr and f2mul, 45 and 165 (bucket 128), 51 and
-    183 (bucket 1024); its 38 / 44 canon_reduce are as many canonical
-    launches, and canon_reduce launches no more; 1,095 and 1,134 launches
-    in all."""
+    """The reference's census op by op, each inversion's chain, the ratio
+    chain and the G1 exact add in one launch: of its 1,539 sqr and 543 mul,
+    1 sqr and 11 mul are left (3 and 17 before the exact add's 2 and 6); of
+    its f2sqr and f2mul, 45 and 165 (bucket 128), 51 and 183 (bucket 1024);
+    of its 38 / 44 canon_reduce, 36 / 42 are as many canonical launches
+    and the exact add's 2 run inside it, and canon_reduce launches no
+    more; its jac_add_f1 runs inside add_exact_f1, one of its 2 jac_dbl_f1
+    too; 1,084 and 1,123 launches in all (1,095 and 1,134 with the exact
+    add's 12 launches)."""
     counts = _census(bucket)
     assert dict(counts) == CENSUS[bucket]
-    assert (counts["sqr"], counts["mul"]) == (3, 17)
+    assert (counts["sqr"], counts["mul"]) == (1, 11)
+    assert (counts["add_exact_f1"], counts["jac_add_f1"], counts["jac_dbl_f1"]) == (1, 0, 1)
     assert (counts["f2sqr"], counts["f2mul"], counts["ratio_chain"]) == {
         128: (45, 165, 1), 1024: (51, 183, 1)}[bucket]
-    assert (counts["canonical"], counts["canon_reduce"]) == ({128: 38, 1024: 44}[bucket], 0)
-    assert sum(counts.values()) == {128: 1095, 1024: 1134}[bucket]
+    assert (counts["canonical"], counts["canon_reduce"]) == ({128: 36, 1024: 42}[bucket], 0)
+    assert sum(counts.values()) == {128: 1084, 1024: 1123}[bucket]
     budgets = json.loads((REPO / "tests" / "budgets" / "kernel_costs.json").read_text())
     ref_total = budgets["buckets"][str(bucket)]["kernel_dispatches"]
     assert sum(REFERENCE[bucket].values()) == ref_total
     folded = sum(n * (sum(CHAIN_LAUNCHES[c].values()) - 1) for c, n in CHAINS_PER_VERIFY.items())
+    folded += EXACT_ADDS_PER_VERIFY * (sum(EXACT_ADD.values()) - 1)
     assert sum(counts.values()) == ref_total - folded
 
 

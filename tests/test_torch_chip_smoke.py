@@ -72,13 +72,43 @@ def test_torch_ops_count_aten_entries_and_the_outer_ones():
 def test_launch_pins_fold_each_canonical_into_one_launch():
     """The pins derived from the op-by-op counts: each canon_reduce launch
     is one canonical launch (canonical() in one kernel), canon_reduce
-    launches no more, and the totals stay."""
+    launches no more; each G1 exact add (a verify's one, an MSM's 90) is
+    one add_exact_f1 launch in place of a jac_add_f1, 2 sqr, 6 mul, 2
+    canonical and a jac_dbl_f1 (EXACT_ADD), so a verify makes 11 launches
+    fewer (1,095 / 1,134 -> 1,084 / 1,123) and an MSM 346 in place of
+    1,336; jac_add_f1 joins canon_reduce off every path."""
     for bucket, n in ((128, 38), (1024, 44)):
         got = smoke.verify_launches(bucket)
-        assert got["canonical"] == n and "canon_reduce" not in got
-        assert sum(got.values()) == {128: 1095, 1024: 1134}[bucket]
-    assert smoke.PER_MSM == {"jac_add_f1": 90, "sqr": 180, "mul": 540, "canonical": 180,
-                             "jac_dbl_f1": 346}
+        assert got["canonical"] == n - 2 and "canon_reduce" not in got
+        assert (got["add_exact_f1"], got["sqr"], got["mul"], got["jac_dbl_f1"]) == (1, 1, 11, 1)
+        assert "jac_add_f1" not in got
+        assert sum(got.values()) == {128: 1095, 1024: 1134}[bucket] - 11
+    assert smoke.EXACT_ADD == {"jac_add_f1": 1, "sqr": 2, "mul": 6, "canon_reduce": 2,
+                               "jac_dbl_f1": 1}
+    assert smoke.PER_MSM == {"add_exact_f1": 90, "jac_dbl_f1": 256}
+    assert sum(smoke.PER_MSM.values()) == 346 == 1336 - 90 * (sum(smoke.EXACT_ADD.values()) - 1)
     check = smoke.check_launches()
-    assert check["canonical"] == 1 and "canon_reduce" not in check
-    assert set(smoke.KZG_KERNELS) >= {"canonical"} and smoke.OFF_PATH == ("canon_reduce",)
+    assert check["canonical"] == 1 and "canon_reduce" not in check and "add_exact_f1" not in check
+    assert set(smoke.KZG_KERNELS) >= {"canonical", "add_exact_f1"}
+    assert "sqr" not in smoke.KZG_KERNELS and "sqr" in smoke.BLS_KERNELS
+    assert smoke.OFF_PATH == ("canon_reduce", "jac_add_f1")
+
+
+def test_exact_add_planted_lanes_take_every_case(monkeypatch):
+    """The smoke's exact-add operands: each planted lane (EXACT_CASES) takes
+    its own case of the select on the plain pieces, at full width and cut
+    to one lane, and the five cases are all taken."""
+    import numpy as np
+
+    monkeypatch.setattr(smoke, "DEVICE", "cpu")
+    args = smoke._inputs(np.random.default_rng(13), (36, 12), "add_exact_f1")
+    assert all(smoke.exact_branches(args).values())
+    branch = {"dbl": "double", "dbl_rescaled": "double", "neg": "infinity",
+              "neg_rescaled": "infinity", "inf_p1": "p2", "inf_p2": "p1", "inf_both": "p2",
+              "sum": "sum"}
+    assert sorted(branch) == sorted(smoke.EXACT_CASES)
+    for i, case in enumerate(smoke.EXACT_CASES):
+        got = smoke.exact_branches([a[..., i : i + 1] for a in args])
+        assert got == {b: int(b == branch[case]) for b in smoke.EXACT_BRANCHES}
+    one = smoke._inputs(np.random.default_rng(14), (36, 1), "add_exact_f1", combos=["neg_rescaled"])
+    assert smoke.exact_branches(one)["infinity"] == 1

@@ -1,9 +1,10 @@
 """The cooperative kernels' programs (lighthouse_tpu_torch/ops/lane/coop.py).
 
 `miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f1`,
-`jac_add_f1`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`, `g2_win_step`,
-`f2mul`, `f2sqr`, `f12mul`, the inversion chains `inv_w4` and `inv_bin`
-and hash-to-G2's ratio chain (two programs, its table and its window) run
+`jac_add_f1`, `add_exact_f1`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`,
+`g2_win_step`, `f2mul`, `f2sqr`, `f12mul`, the inversion chains `inv_w4`
+and `inv_bin` and hash-to-G2's ratio chain (two programs, its table and
+its window) run
 on the card as programs of warp jobs (csrc/coop.cuh), traced from their
 plain bodies. Here each encoded program is executed on CPU tensors
 job by job with the plain Fp bodies, stage by stage with its row reuse,
@@ -12,7 +13,10 @@ window steps' programs (their arithmetic without the selects), over G1
 and G2, with their block-uniform epilogue against the whole plain body,
 on every digit and infinity on either side, and `jac_add_f1`'s and
 `jac_add_f2`'s with their epilogue against `_add_f1_body` and
-`_add_f2_body`, with P1, P2, both or neither at infinity; the ratio
+`_add_f2_body`, with P1, P2, both or neither at infinity;
+`add_exact_f1`'s with its epilogue (canonical() of H and R, the five-way
+select) against `_add_exact_f1_body` on real points, every case of the
+select taken; the ratio
 chain's table program, then its window program once
 a digit, against `_ratio_chain_body` and the op-by-op chain, whose value
 is the host's w^((p^2 - 9) / 16).
@@ -25,6 +29,7 @@ count and its comparison of a kernel's outputs with the plain body's. The
 kernels themselves are held on the card by chip_smoke.py.
 """
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -40,6 +45,11 @@ from lighthouse_tpu_torch.ops.lane import (
 from lighthouse_tpu_torch.tools import coop_warps
 
 CSRC = Path(coop.__file__).resolve().parents[2] / "csrc"
+# chip_smoke.py, for the exact add's planted operands (real points)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 F2, F12 = (2,), (2, 3, 2)
 
 # kernel -> (plain body, operand fields, lazy terms per operand (ONE: the
@@ -57,6 +67,8 @@ BODIES = {
     # the add's arithmetic: P1, P2 -> P1 + P2
     "jac_add_f1": (J._add_core_f1, [()] * 6, [1, 2, 1, 1, 1, 2], 16),
     "jac_add_f2": (J._add_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 2], 43),
+    # the exact add's arithmetic: P1, P2 -> P1 + P2, [2]P1, H, R
+    "add_exact_f1": (J._add_exact_core_f1, [()] * 6, [1, 2, 1, 1, 1, 2], 23),
     "g1_win_step": (chains._win_core_f1, [()] * 6, [1, 2, 1, 1, 1, 1], 30),
     # the window step's arithmetic: acc, E -> [4]acc, [4]acc + E
     "g2_win_step": (chains._win_core_f2, [F2] * 6, [1, 2, 1, 1, 1, 1], 75),
@@ -72,7 +84,7 @@ BODIES = {
 }
 # the kernels' sources, by the program each launches
 SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_sqr": "miller.cu",
-           "jac_dbl_f1": "jac_dbl.cu", "jac_add_f1": "jac_add.cu",
+           "jac_dbl_f1": "jac_dbl.cu", "jac_add_f1": "jac_add.cu", "add_exact_f1": "jac_add.cu",
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
            "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
@@ -197,6 +209,30 @@ def test_add_program_with_epilogue_equals_plain_body(name):
         assert torch.equal(g, w)
 
 
+def test_add_exact_program_with_epilogue_equals_plain_body(monkeypatch):
+    """The exact add as its kernel computes it, on the smoke's planted
+    lanes (real points: P + P under one Z and under Z2 = l Z1, P + (-P)
+    both ways, infinity as P1, P2 and both, P + Q), a stack of 2 x 8: the
+    program maps (P1, P2) to the sum, [2]P1, H and R; canonical() of H and
+    R and the five-way select (`_add_exact_flags`, `_add_exact_select`)
+    make the epilogue. Limb for limb `_add_exact_f1_body`, each case of the
+    select taken."""
+    monkeypatch.setattr(smoke, "DEVICE", "cpu")
+    rng = np.random.default_rng(2009)
+    args = smoke._inputs(rng, (2, fp.W, 8), "add_exact_f1")
+    assert all(smoke.exact_branches(args).values())
+    c = fp.consts("cpu")
+    lead, S = (2,), 8
+    out = coop.run_reference(coop.program(coop.slot("add_exact_f1")),
+                             torch.cat([rows(a, lead) for a in args]), c["folds"], c["topf"])
+    out = [unrows(out[i : i + 1], lead, (), S) for i in range(8)]
+    flags = J._add_exact_flags(c["folds"], c["topf"], args[2], args[5], out[6], out[7])
+    got = J._add_exact_select(args[:3], args[3:], out[:3], out[3:6], flags)
+    want = J._add_exact_f1_body(c["folds"], c["topf"], *args)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
 def _ratio_chain_by_launches(w):
     """The chain as `ratio_chain` ran it before it was one kernel: one
     `f2sqr` or `f2mul` call at a time (here their plain bodies)."""
@@ -300,20 +336,24 @@ def test_program_shape(name):
 def test_programs_fit_the_constant_bank():
     """Every library that includes the generated header holds all programs
     and the ratio chain's digits in its constant bank, beside fp_lane.cuh's
-    FOLDS and TOPFM."""
+    FOLDS and TOPFM. add_exact_f1's canonical() tables (KP and the ladder,
+    37 + 7 x 37 words) stay out of the bank: jac_add.cu keeps them in
+    global memory and copies them into the block's shared memory."""
     words = sum(coop.stats(slot)["words"] for slot in coop.PROGRAMS)
     digits = len(htc._WIN_IDX)
     assert words + digits + coop.TABLES <= coop.BANK_WORDS == 65536 // 4
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
     # with the ratio chain's table (399 words) and window (68), and its 191
     # digits, miller_add_iter's 978 words, f2mul's 42, f2sqr's 25,
-    # jac_dbl_f1's 73 and jac_add_f1's 125: 11,671 words of sixteen
-    # programs, 13,557 of the bank's words with the digits and the tables,
-    # 2,827 left
-    assert (words, digits, coop.TABLES) == (11473 + 198, 191, 1695)
-    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 2827
+    # jac_dbl_f1's 73, jac_add_f1's 125 and add_exact_f1's 194: 11,865
+    # words of seventeen programs, 13,751 of the bank's words with the
+    # digits and the tables, 2,633 left
+    assert (words, digits, coop.TABLES) == (11473 + 198 + 194, 191, 1695)
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 2633
+    src = (CSRC / "jac_add.cu").read_text()
+    assert "static __device__ int g_canon[CANON_WORDS];" in src and "__constant__" not in src
     fake = dict(coop.PROGRAMS)
-    fake[16], fake[17] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[17], fake[18] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -349,6 +389,7 @@ def test_header_mirrors_python():
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("miller_add_iter", 24, 18),
                               ("f2mul", 4, 2), ("f2sqr", 2, 2), ("cyc_sqr", 12, 12),
                               ("jac_dbl_f1", 3, 3), ("jac_add_f1", 6, 3),
+                              ("add_exact_f1", 6, 8),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
                               ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1),
@@ -402,7 +443,7 @@ def test_tracing_leaves_other_callers_the_plain_bodies():
     assert torch.equal(got[2], rl_body(a, c["folds"], c["topf"]))
 
 
-@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain"])
+@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1"])
 def test_warps_override_builds_apart_and_restores(name):
     """tools/coop_warps.py's variants: another warp count writes another
     header, so its library builds in a directory of its own; the count

@@ -182,6 +182,40 @@ def test_canonical_plain_body_equals_reference(case):
     assert not port.LAUNCHES and not port.PLAIN_CUDA_CALLS
 
 
+def _signed_ladder(x):
+    """csrc/canon.cuh's `canonical_body` in its signed form, op for op on
+    int32 tensors: canon_reduce, + KP and a ripple, then for k = 6 .. 0
+    subtract p * 2^k where the value is >= 0 and add it where it is < 0
+    (`(pk ^ flip) - flip`), the sign from the round's carry out; + p
+    where the value ends < 0, and a last ripple."""
+    c = port.consts("cpu")
+    v = port._canon_reduce_body(x, c["folds"], c["topf"])
+    v = port._ripple_carry(port._pad_limbs(v, 37) + c["kp37"])[0]
+    neg = torch.zeros_like(v[..., :1, :])
+    for k in reversed(range(port._LADDER_ROUNDS)):
+        flip = neg - 1  # -1: subtract, 0: add
+        v, carry = port._ripple_carry(v + ((c["pk_ladder"][k] ^ flip) - flip))
+        neg = (carry[..., None, :] - neg < 0).to(torch.int32)
+    v = port._ripple_carry(v + (c["pk_ladder"][0] & -neg))[0]
+    return v[..., : port.W, :]
+
+
+@pytest.mark.parametrize("case", ["products-36x8", "edges"])
+def test_signed_ladder_equals_canonical(case):
+    """The ladder's signed form, which `add_exact_f1` runs for its zero
+    tests, gives the plain body's limbs on the operands canonical() is
+    held on: seeded differences of products (H and R are such) and the
+    edge operands at both ends of the ladder's window."""
+    if case == "edges":
+        x = torch.from_numpy(_smoke()._canonical_edges())
+    else:
+        rng = np.random.default_rng(zlib.crc32(case.encode()))
+        a, b, d, e = (torch.from_numpy(lazy(rng, (36, 8))) for _ in range(4))
+        x = port.mul(a, b) - port.mul(d, e)
+    c = port.consts("cpu")
+    assert torch.equal(_signed_ladder(x), port._canonical_fn(c["folds"], c["topf"], x))
+
+
 @pytest.mark.parametrize("shape", [(36, 8), (2, 36, 4)])
 def test_norm3_plain_body_equals_reference(shape):
     """The public carry reset on a 12-term lazy add chain (the depth the
