@@ -16,11 +16,11 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the sixteen cooperative kernels (csrc/coop.cuh:
+   function; for the eighteen cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
    add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul,
-   f2sqr, f12mul, the Fermat inversions inv_w4, inv_bin and hash-to-G2's
-   ratio_chain),
+   f2sqr, f6mul, f12mul, the Fermat inversions inv_w4, inv_bin,
+   hash-to-G2's ratio_chain, and mul, one warp per lane element),
    their ptxas line, the dynamic shared memory their library launches
    them with (held equal to their programs' layout) and their programs'
    shape (stages, jobs, rows, warps, words).
@@ -34,7 +34,10 @@ non-zero before the last line:
    EXACT_CASES, the same way, and the lanes that took each of its five
    cases counted over all its holds, each case at least once; the
    doubling once a width), in device ms and bound at 1 ... 4,096 lanes
-   with the latency floor at S = 1; slice 4's norm3, f12sqr, f12mul_034, ladder_step_f1,
+   with the latency floor at S = 1; the cooperative mul also at S = 1,
+   2, 1,024 and at its paths' stacks 12 x 1, 2 x 1 and 2 x
+   1,024 (MUL_S), in device ms and bound there; slice 4's norm3, f12sqr,
+   f12mul_034, ladder_step_f1,
    ladder_step_f2, ubench_mul and ubench_mul_chain (R = 3) on seeded
    operands at those widths and at S = 1 and 2 (infinity lanes on both
    sides of a ladder step, its bit row all 0, all 1 and mixed), timed at
@@ -56,9 +59,9 @@ non-zero before the last line:
    canonical's: every distinct operand layout each kernel met there
    (shapes, and broadcast views such as frob2's gamma table or the first
    iteration's expanded 1), each at S = 1, 2, 4097 and at 128 lanes with
-   a leading stack of 2 (the cooperative miller_dbl_iter,
-   miller_add_iter, cyc_sqr, f2mul, f2sqr, f12mul and inv_bin also at S =
-   1024, the BLS bucket-1024 width, and f2mul and f2sqr at S = 2048 and a
+   a leading stack of 2 (the cooperative mul, miller_dbl_iter,
+   miller_add_iter, cyc_sqr, f2mul, f2sqr, f6mul, f12mul and inv_bin also
+   at S = 1024, the BLS bucket-1024 width, and f2mul and f2sqr at S = 2048 and a
    stack of 4 x 2048, their widths in a bucket-1024 verify). All
    torch.equal. Each timed at S = 4096 (profiler device ms, CUDA-event
    call ms, plain ms, bound) and at the pairing path's own width; the
@@ -135,7 +138,8 @@ non-zero before the last line:
    stack, spills and static shared memory; `launch_smem`: the cooperative
    kernels' dynamic shared memory, as each library reports it; their and
    canonical's device ms and bound at S = 1, 2 and 1024, f2mul's and
-   f2sqr's also at 2048 and 4x2048, and the latency floor at S = 1);
+   f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, and
+   the latency floor at S = 1);
    9. the `ok` JSON line (last).
 """
 
@@ -309,16 +313,22 @@ def check_launches() -> dict:
     return _with_chains(op_by_op, {"inv_bin": 1})
 
 
-# the cooperative kernels (csrc/coop.cuh; slices 5-12), by the library that
+# the cooperative kernels (csrc/coop.cuh), by the library that
 # launches them: also held at the bucket-1024 width and read in device ms
 # at the widths their paths run
 COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "jac_dbl",
              "jac_add_f2": "jac_add", "g1_win_step": "chains", "g2_win_step": "chains",
              "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
              "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower",
-             "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add", "add_exact_f1": "jac_add"}
+             "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add", "add_exact_f1": "jac_add",
+             "f6mul": "tower", "mul": "fp_mul"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
+# mul's widths on the paths beyond those, each a stack (K, S): frob2's 12 x
+# 1 and the final exponentiation's f2inv 2 x 1 (a verify's finish and the
+# KZG check), the affine conversions' f2inv 2 x 1,024 (1 x 1,024: S=1024);
+# held there on seeded operands [K, 36, S] and read in device ms
+MUL_S = (*REDESIGNED_S, (12, 1), (2, 1), (2, 1024))
 # f2mul's and f2sqr's widths in a bucket-1024 verify beyond those: 2,048
 # lanes and a stack of 4 x 2,048 (K, S); held there and read in device ms
 # on one element of the recorded stack (Fp2 operands [2, W, S])
@@ -1112,10 +1122,16 @@ def phase_kernels() -> dict:
         if name in MSM_KERNELS:
             max_err = max(max_err, _msm_width_holds(rng, name, branches))
             timing.update(_widths_ms(name, main, MSM_S))
+        if name == "mul":
+            for w in MUL_S:
+                shape = (w[0], 36, w[1]) if isinstance(w, tuple) else (36, w)
+                max_err = max(max_err, _hold(name, _inputs(rng, shape, name), str(shape)))
+            timing.update(_widths_ms(name, main, MUL_S))
         out[name] = dict(max_abs_err=max_err, **timing)
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             shapes="36x4096,2x36x128,36x4097"
-            + (",S=" + "|".join(map(str, MSM_S[:-1])) if name in MSM_KERNELS else ""),
+            + (",S=" + "|".join(map(str, MSM_S[:-1])) if name in MSM_KERNELS else "")
+            + ("," + ",".join(map(_label, MUL_S)) if name == "mul" else ""),
             operands="seeded" + {"jac_add_f1": "(every infinity combination)",
                                  "add_exact_f1": "(planted: " + ",".join(EXACT_CASES) + ")"
                                  }.get(name, ""),

@@ -298,12 +298,27 @@ __device__ __forceinline__ void load(int* rows, const int* __restrict__ g, int C
   for (int r = threadIdx.x; r < C * W; r += NW * 32) rows[r] = g[base + (long)r * S];
 }
 
+// The job at `job` (its words) of `prog` by the calling warp, on the rows
+// at index `rows` of smem, with the warp's scratch at index `scratch`.
+__device__ __forceinline__ void run_job(const int* prog, const int* job, int* smem, int rows,
+                                        int scratch, const Lane& c) {
+  const int w0 = job[0];
+  const int* t = prog + job[2];
+  const int out = rows + job[1] * W;
+  const int kind = w0 & 0xFF;  // one kind a job: uniform over the warp
+  if (kind == RL) {
+    job_rl(smem, smem + rows, t, (w0 >> 8) & 0xFF, out, scratch + BPAD, c);
+  } else {
+    job_mul(smem, smem + rows, t, kind, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF, out,
+            scratch + BPAD, smem + scratch, c);
+  }
+}
+
 // Run every stage of `prog` (the block's warps share each stage's jobs).
 template <int NW>
 __device__ __forceinline__ void run(const int* prog, int* smem) {
   const int rows = TABLES + NW * SCRATCH;  // the rows' index in smem
   const int scratch = TABLES + (threadIdx.x >> 5) * SCRATCH;
-  const int* arena = smem + rows;
   const Lane c = lane_consts(smem);
   const int n_st = prog[H_STAGES];
   const int* starts = prog + H_STAGE0;
@@ -311,26 +326,14 @@ __device__ __forceinline__ void run(const int* prog, int* smem) {
   for (int st = 0; st < n_st; ++st) {
     const int end = starts[st + 1];
     for (int j = starts[st] + (threadIdx.x >> 5); j < end; j += NW) {
-      const int* job = jobs + j * JOB_WORDS;
-      const int w0 = job[0];
-      const int* t = prog + job[2];
-      const int out = rows + job[1] * W;
-      const int kind = w0 & 0xFF;  // one kind a job: uniform over the warp
-      if (kind == RL) {
-        job_rl(smem, arena, t, (w0 >> 8) & 0xFF, out, scratch + BPAD, c);
-      } else {
-        job_mul(smem, arena, t, kind, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF, out,
-                scratch + BPAD, smem + scratch, c);
-      }
+      run_job(prog, jobs + j * JOB_WORDS, smem, rows, scratch, c);
     }
     __syncthreads();
   }
 }
 
-// Limb i of the program's output o.
-__device__ __forceinline__ int out_limb(const int* prog, const int* smem, int nw,
-                                        int o, int i) {
-  const int* arena = smem + TABLES + nw * SCRATCH;
+// Limb i of the program's output o, over the rows at `arena`.
+__device__ __forceinline__ int out_value(const int* prog, const int* arena, int o, int i) {
   const int* outs = prog + H_STAGE0 + prog[H_STAGES] + 1 + prog[H_JOBS] * JOB_WORDS;
   const int* t = prog + outs[o * OUT_WORDS];
   const int n = outs[o * OUT_WORDS + 1];
@@ -340,6 +343,48 @@ __device__ __forceinline__ int out_limb(const int* prog, const int* smem, int nw
     s += (unsigned)(((w & 0xFF) ^ 0x80) - 0x80) * (unsigned)arena[(w >> 8) * W + i];
   }
   return (int)s;
+}
+
+// Limb i of the program's output o (the block's rows).
+__device__ __forceinline__ int out_limb(const int* prog, const int* smem, int nw,
+                                        int o, int i) {
+  return out_value(prog, smem + TABLES + nw * SCRATCH, o, i);
+}
+
+// ------------------------------------------------ one warp per lane element
+// A one-job program (the standalone `mul`) leaves a block of warps per
+// lane element idle but for one warp, and the block's copy of the tables
+// costs as much as the job. Laid out by warp (coop.py PER_WARP), a block
+// of NW warps copies the tables once and takes NW lane elements at a
+// time, one a warp: after the tables and the NW warp scratches come NW
+// sets of rows, warp w's at `warp_rows`, and each warp runs every job of
+// the program on its own rows, the same job code as above.
+
+// Shared memory of such a block: the tables, NW scratches, NW sets of rows.
+__host__ __device__ constexpr int warp_smem_ints(int nw, int rows) {
+  return TABLES + nw * (SCRATCH + rows * W);
+}
+
+// The index in smem of warp w's rows.
+__host__ __device__ constexpr int warp_rows(int nw, int rows, int w) {
+  return TABLES + nw * SCRATCH + w * rows * W;
+}
+
+// Run every stage of `prog` on the calling warp alone, over the rows at
+// index `rows` of smem, with the warp's scratch at index `scratch`; the
+// lane constants `c` from the block's tables.
+__device__ __forceinline__ void run_warp(const int* prog, int* smem, int rows, int scratch,
+                                         const Lane& c) {
+  const int n_st = prog[H_STAGES];
+  const int* starts = prog + H_STAGE0;
+  const int* jobs = starts + n_st + 1;
+  for (int st = 0; st < n_st; ++st) {
+    const int end = starts[st + 1];
+    for (int j = starts[st]; j < end; ++j) {
+      run_job(prog, jobs + j * JOB_WORDS, smem, rows, scratch, c);
+    }
+    __syncwarp();  // the stage's rows, for the next stage's lanes
+  }
 }
 
 // ------------------------------------------------ the group kernels' rows

@@ -17,10 +17,16 @@
 // products. reduce_light (two single-row folds, ~300 operations on 288
 // bytes) is bound by bytes.
 //
-// `f12mul`, `f2mul` and `f2sqr` are cooperative (coop.cuh): a block of
-// F12MUL_WARPS / F2MUL_WARPS / F2SQR_WARPS warps per lane element, the
-// element's rows in shared memory, each Fp product or reduce_light one
-// warp's job. Their programs are traced by ops/lane/coop.py. `f12mul`'s,
+// `f12mul`, `f6mul`, `f2mul` and `f2sqr` are cooperative (coop.cuh): a
+// block of F12MUL_WARPS / F6MUL_WARPS / F2MUL_WARPS / F2SQR_WARPS warps per
+// lane element, the element's rows in shared memory, each Fp product or
+// reduce_light one warp's job. Their programs are traced by
+// ops/lane/coop.py. `f6mul`'s, from `_f6mul_body`, is 3 stages: the 18
+// products of its six Karatsuba f2muls side by side, then their 12
+// reduce_lights, then the output's 6, on 30 rows. All its launches (4 a
+// BLS verify, 4 a KZG pairing check: the final exponentiation's Fp12
+// inversion, two f6sqr and two products) run at one lane element, where
+// one thread ran the 18 products and 18 reduce_lights in a row. `f12mul`'s,
 // from `_f12mul_body`, is 3 stages: the 54 products of the three Fp6
 // Karatsuba products side by side, then the f2mul and the f6mul
 // reduce_lights (36, 18), on 90 rows. 36 of its 46 launches a BLS verify
@@ -57,33 +63,24 @@ __global__ void __launch_bounds__(lh::THREADS)
   lh::store_rows<1>(out, x, k, s, S);
 }
 
-__global__ void __launch_bounds__(lh::THREADS)
-    k_f6mul(const int* __restrict__ a, const int* __restrict__ b,
-            int* __restrict__ out, int K, int S) {
-  long k, s;
-  if (!lh::lane_index(K, S, &k, &s)) return;
-  int x[lh::F6], y[lh::F6];
-  lh::load_rows<6>(x, a, k, s, S);
-  lh::load_rows<6>(y, b, k, s, S);
-  lh::f6mul(x, x, y);
-  lh::store_rows<6>(out, x, k, s, S);
-}
-
 // ------------------------------------------------------------ cooperative
 
 // warps per lane element, from ops/lane/coop.py PROGRAMS
 constexpr int F12MUL_NW = lh::coop::F12MUL_WARPS;
 constexpr int F2MUL_NW = lh::coop::F2MUL_WARPS;
 constexpr int F2SQR_NW = lh::coop::F2SQR_WARPS;
+constexpr int F6MUL_NW = lh::coop::F6MUL_WARPS;
 static_assert(lh::coop::F12MUL_INS == 24 && lh::coop::F12MUL_OUTS == 12, "f12mul: a, b -> a b");
+static_assert(lh::coop::F6MUL_INS == 12 && lh::coop::F6MUL_OUTS == 6, "f6mul: a, b -> a b");
 static_assert(lh::coop::F2MUL_INS == 4 && lh::coop::F2MUL_OUTS == 2, "f2mul: a, b -> a b");
 static_assert(lh::coop::F2SQR_INS == 2 && lh::coop::F2SQR_OUTS == 2, "f2sqr: a -> a^2");
 // the dynamic shared memory each block launches with
 constexpr int F12MUL_SMEM = 4 * lh::coop::smem_ints(F12MUL_NW, lh::coop::F12MUL_ROWS);
 constexpr int F2MUL_SMEM = 4 * lh::coop::smem_ints(F2MUL_NW, lh::coop::F2MUL_ROWS);
 constexpr int F2SQR_SMEM = 4 * lh::coop::smem_ints(F2SQR_NW, lh::coop::F2SQR_ROWS);
+constexpr int F6MUL_SMEM = 4 * lh::coop::smem_ints(F6MUL_NW, lh::coop::F6MUL_ROWS);
 static_assert(F12MUL_SMEM <= 227 * 1024 && F2MUL_SMEM <= 227 * 1024 &&
-                  F2SQR_SMEM <= 227 * 1024,
+                  F2SQR_SMEM <= 227 * 1024 && F6MUL_SMEM <= 227 * 1024,
               "a block's shared memory");
 
 __global__ void __launch_bounds__(F2MUL_NW * 32, lh::coop::min_blocks(F2MUL_NW))
@@ -121,6 +118,26 @@ __global__ void __launch_bounds__(F2SQR_NW * 32, lh::coop::min_blocks(F2SQR_NW))
     const int o = t / W, i = t - o * W;
     out[lh::coop::at(2, o, i, k, s, S)] =
         lh::coop::out_limb(lh::coop::c_prog_f2sqr, smem, NW, o, i);
+  }
+}
+
+__global__ void __launch_bounds__(F6MUL_NW * 32, lh::coop::min_blocks(F6MUL_NW))
+    k_f6mul(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
+            int S) {
+  constexpr int NW = F6MUL_NW;
+  long k, s;
+  lh::coop::block_elem(S, &k, &s);
+  int* smem = lh::coop::dyn_smem();
+  int* rows = lh::coop::setup<NW>(smem);
+  // the program's input rows: a (6), b (6)
+  lh::coop::load<NW>(rows, a, 6, k, s, S);
+  lh::coop::load<NW>(rows + 6 * W, b, 6, k, s, S);
+  __syncthreads();
+  lh::coop::run<NW>(lh::coop::c_prog_f6mul, smem);
+  for (int t = threadIdx.x; t < 6 * W; t += NW * 32) {
+    const int o = t / W, i = t - o * W;
+    out[lh::coop::at(6, o, i, k, s, S)] =
+        lh::coop::out_limb(lh::coop::c_prog_f6mul, smem, NW, o, i);
   }
 }
 
@@ -186,13 +203,19 @@ LH_EXPORT int lh_tower_init(const void* folds, const void* topfm) {
     e = (int)cudaFuncSetAttribute(k_f2sqr, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   F2SQR_SMEM);
   }
+  if (!e) {
+    e = (int)cudaFuncSetAttribute(k_f6mul, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  F6MUL_SMEM);
+  }
   return e;
 }
 
 // The dynamic shared memory (bytes) a block of program `slot` (coop.py
-// PROGRAMS: f12mul, f2mul, f2sqr) launches with; -1 for another slot.
+// PROGRAMS: f12mul, f6mul, f2mul, f2sqr) launches with; -1 for another
+// slot.
 LH_EXPORT int lh_tower_launch_smem(int slot) {
   if (slot == lh::coop::F12MUL_SLOT) return F12MUL_SMEM;
+  if (slot == lh::coop::F6MUL_SLOT) return F6MUL_SMEM;
   if (slot == lh::coop::F2SQR_SLOT) return F2SQR_SMEM;
   return slot == lh::coop::F2MUL_SLOT ? F2MUL_SMEM : -1;
 }
@@ -226,7 +249,9 @@ LH_EXPORT int lh_f2sqr(const void* a, void* out, int K, int S, void* stream) {
 
 LH_EXPORT int lh_f6mul(const void* a, const void* b, void* out, int K, int S,
                        void* stream) {
-  LH_LAUNCH(k_f6mul, (const int*)a, (const int*)b, (int*)out);
+  k_f6mul<<<(unsigned)((long)K * S), F6MUL_NW * 32, F6MUL_SMEM, (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, (int*)out, S);
+  return (int)cudaGetLastError();
 }
 
 LH_EXPORT int lh_f12mul(const void* a, const void* b, void* out, int K, int S,

@@ -14,7 +14,8 @@ chains._win_core_f2, tower._f12mul_body, chains._inv_w4_body,
 fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
 htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
 tower._f2mul_body, tower._f2sqr_body, jacobian._dbl_f1_body,
-jacobian._add_core_f1, jacobian._add_exact_core_f1): run on symbolic rows,
+jacobian._add_core_f1, jacobian._add_exact_core_f1, tower._f6mul_body,
+fp._mul_fn): run on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -39,6 +40,13 @@ program's outputs).
 A program holds no loop either: a chain whose steps repeat is two
 programs, one run once and one run a step at a time by its kernel, which
 moves the step's operands between runs (CHAINS; csrc/htc.cu).
+
+A one-job program (the standalone `mul`) would leave all but one warp of
+such a block idle, and the block's copy of the tables would cost as much
+as its job. Its kernel lays the block out by warp instead (PER_WARP): a
+block of NW warps holds one copy of the tables and NW lane elements at a
+time, one a warp, each warp running the whole program on its own rows
+(csrc/coop.cuh `run_warp`).
 
 Each job is scheduled at the earliest stage its operands allow, and its
 result takes the lowest shared-memory row that no later stage reads. The
@@ -136,13 +144,34 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # 0.02026 / 0.01786 / 0.01798 / 0.01770, 4,096 0.15738 / 0.15834 /
 # 0.16669 / 0.17028; over the commit's mix 12.616 / 12.668 / 13.333 /
 # 13.612 ms: 3 and 4 warps within 0.5 %; 4, faster at the verify's widths.
+# f6mul's 3 stages hold 18 products, then 12 and 6 reduce_light: 3 rounds
+# on 18 and 32 warps, 4 on 12 and 16, 5 on 9, 6 on 6; all its launches (4
+# a verify, 4 a KZG check) run at one lane. On 6 / 9 / 12 / 18 warps one
+# lane takes 0.00886 / 0.00824 / 0.00773 / 0.00759 ms, 1,024 lanes 0.03294
+# / 0.03513 / 0.03721 / 0.05184, 4,096 0.11406 / 0.12210 / 0.13393 /
+# 0.20064, but 12 and 18 warps do not divide 32, so their launch bound
+# lets ptxas take 80 registers; at the 64-register cap 16 warps take
+# 0.00820 at one lane (0.04039 at 1,024) and 32 warps 0.00746 (0.05383):
+# 32. mul (PER_WARP: warps a block, a lane element each) runs 11
+# launches a verify, 2 at 12 x 1, 4 at 2 x 1, 3 at 1,024 and 2 at 2 x
+# 1,024. On 1 / 2 / 4 / 8 / 16 / 32 warps 12 x 1 takes 0.00446 / 0.00509 /
+# 0.00483 / 0.00516 / 0.00604 / 0.00625 ms, 2 x 1 0.00446 / 0.00507 /
+# 0.00483 / 0.00470 / 0.00488 / 0.00513, 1,024 0.00578 / 0.00589 / 0.00546
+# / 0.00542 / 0.00677 / 0.00957, 2 x 1,024 0.00789 / 0.00747 / 0.00693 /
+# 0.00681 / 0.00686 / 0.00961, 4,096 0.01285 / 0.01054 / 0.00969 / 0.00960
+# / 0.00977 / 0.00977, 110,592 0.23720 / 0.18999 / 0.17609 / 0.18166 /
+# 0.21031 / 0.22892: over a verify's mix 8 warps take the least (0.0590
+# ms; 4 warps 0.0592, 1 warp 0.0599).
 # Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
             7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
             10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3),
             13: ("f2sqr", 3), 14: ("jac_dbl_f1", 3), 15: ("jac_add_f1", 4),
-            16: ("add_exact_f1", 4)}
+            16: ("add_exact_f1", 4), 17: ("f6mul", 32), 18: ("mul", 8)}
+# kernels laid out one warp per lane element (NW elements a block at a
+# time, one copy of the tables): PROGRAMS gives their warps a block
+PER_WARP = frozenset({"mul"})
 # kernel -> its programs, where it runs more than one: the ratio chain
 # (csrc/htc.cu) runs the table's once, then the window's once a digit of
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
@@ -150,7 +179,7 @@ PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
 CHAINS = {"ratio_chain": ("ratio_table", "ratio_win")}
 
 
-FP, FP2, FP12 = (), (2,), (2, 3, 2)
+FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)
 
 
 def _lin(v: torch.Tensor) -> dict:
@@ -379,6 +408,9 @@ def program(slot: int) -> np.ndarray:
         "f2sqr": (tower._f2sqr_body, (FP2,)),
         # P1, P2 -> P1 + P2, [2]P1, H, R (no selection)
         "add_exact_f1": (jacobian._add_exact_core_f1, (FP,) * 6),
+        # a, b -> a b over Fp6 and over Fp
+        "f6mul": (tower._f6mul_body, (FP6, FP6)),
+        "mul": (fp._mul_fn, (FP, FP)),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 
@@ -395,18 +427,21 @@ def programs_of(name: str) -> tuple:
 
 
 def stats(slot: int) -> dict:
-    """Stages, jobs, rows and the shared memory of one block (bytes)."""
+    """Stages, jobs, rows and the shared memory of one block (bytes); a
+    PER_WARP kernel's block holds rows for each of its warps, each of
+    which runs every job (its rounds)."""
     w = program(slot)
     n_st, n_jobs, n_rows = int(w[H_STAGES]), int(w[H_JOBS]), int(w[H_ROWS])
-    nw = PROGRAMS[slot][1]
+    name, nw = PROGRAMS[slot]
     starts = w[H_STAGE0 : H_STAGE0 + n_st + 1]
     per_stage = np.diff(starts)
     jobs = w[H_STAGE0 + n_st + 1 :][: JOB_WORDS * n_jobs].reshape(-1, JOB_WORDS)
+    per_warp = name in PER_WARP
     return dict(
         stages=n_st, jobs=n_jobs, rows=n_rows, warps=nw,
         products=int((jobs[:, 0] & 0xFF != RL).sum()),
-        rounds=int(sum(-(-int(n) // nw) for n in per_stage)),
-        smem_bytes=4 * (TABLES + nw * SCRATCH + n_rows * W),
+        rounds=n_jobs if per_warp else int(sum(-(-int(n) // nw) for n in per_stage)),
+        smem_bytes=4 * (TABLES + nw * SCRATCH + (nw if per_warp else 1) * n_rows * W),
         words=len(w),
     )
 

@@ -139,7 +139,7 @@ def nvcc_path() -> str:
 
 # the header of the cooperative kernels' programs (ops/lane/coop.py), which
 # build() writes into the build directory for csrc/miller.cu, jac_dbl.cu,
-# jac_add.cu, chains.cu, tower.cu, inv.cu and htc.cu
+# jac_add.cu, chains.cu, tower.cu, inv.cu, htc.cu and fp_mul.cu
 PROGRAMS_H = "coop_programs.h"
 
 

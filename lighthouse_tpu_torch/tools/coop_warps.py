@@ -20,13 +20,17 @@ Run on a machine with a CUDA card:
     python -m lighthouse_tpu_torch.tools.coop_warps jac_add_f1 --S 1 256 4096 --warps 2 3 4 5
     python -m lighthouse_tpu_torch.tools.coop_warps jac_dbl_f1 --S 1 1024 4096 --warps 1 2 3 4
     python -m lighthouse_tpu_torch.tools.coop_warps add_exact_f1 --S 1 2048 4096 --warps 3 4 5
+    python -m lighthouse_tpu_torch.tools.coop_warps f6mul --S 1 1024 4096 --warps 6 9 12 16 18 32
+    python -m lighthouse_tpu_torch.tools.coop_warps mul --S 1 1024 4096 --K 1 2 12 --warps 1 2 4 8 16
 
 Kernels: miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1,
 jac_add_f1, add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step,
-g2_win_step, f2mul, f2sqr, f12mul, inv_w4, inv_bin, ratio_chain (its two
-programs on one warp count). Several widths (--S) and stack depths (--K:
-operands [K, ..., S], K x S lane elements) share one build per warp
-count. The seeded operands put no point at infinity.
+g2_win_step, f2mul, f2sqr, f6mul, f12mul, inv_w4, inv_bin, ratio_chain
+(its two programs on one warp count), and mul, laid out one warp per lane
+element (coop.PER_WARP: its warps a block, each on its own element).
+Several widths (--S) and stack depths (--K: operands [K, ..., S], K x S
+lane elements) share one build per warp count. The seeded operands put
+no point at infinity.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ def _ops():
             "jac_dbl_f1": J._dbl_f1, "jac_add_f1": J._add_f1, "add_exact_f1": J._add_exact_f1,
             "jac_dbl_f2": J._dbl_f2, "jac_add_f2": J._add_f2,
             "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
-            "f2mul": tower.f2mul, "f2sqr": tower.f2sqr, "f12mul": tower.f12mul,
+            "f2mul": tower.f2mul, "f2sqr": tower.f2sqr, "f6mul": tower.f6mul,
+            "f12mul": tower.f12mul, "mul": fp.mul,
             "inv_w4": chains.inv_w4,
             "inv_bin": fp.inv_bin,
             "ratio_chain": htc.ratio_chain_op}

@@ -112,3 +112,23 @@ def test_exact_add_planted_lanes_take_every_case(monkeypatch):
         assert got == {b: int(b == branch[case]) for b in smoke.EXACT_BRANCHES}
     one = smoke._inputs(np.random.default_rng(14), (36, 1), "add_exact_f1", combos=["neg_rescaled"])
     assert smoke.exact_branches(one)["infinity"] == 1
+
+
+def test_cooperative_kernels_are_the_programs_kernels():
+    """COOP_LIBS (phase 2's `[build]` lines, phase 3's widths) names each
+    kernel that runs a cooperative program, by the library that launches
+    it, and REDESIGNED is that set: eighteen, among them f6mul (tower)
+    and mul (fp_mul, one warp per lane element), held at their paths'
+    widths, mul's stacks in MUL_S."""
+    from lighthouse_tpu_torch.ops.lane import coop, kernels
+
+    names = {n for n, _ in coop.PROGRAMS.values()}
+    for chain, parts in coop.CHAINS.items():
+        names = (names - set(parts)) | {chain}
+    assert set(smoke.COOP_LIBS) == names and len(names) == 18
+    assert smoke.REDESIGNED == tuple(smoke.COOP_LIBS)
+    for name, lib in smoke.COOP_LIBS.items():
+        assert kernels.ENTRIES[smoke._op(name).symbol][0] == lib, name
+    assert (smoke.COOP_LIBS["f6mul"], smoke.COOP_LIBS["mul"]) == ("tower", "fp_mul")
+    assert coop.PER_WARP == {"mul"}
+    assert smoke.MUL_S == (1, 2, 1024, (12, 1), (2, 1), (2, 1024))

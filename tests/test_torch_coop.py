@@ -2,9 +2,10 @@
 
 `miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f1`,
 `jac_add_f1`, `add_exact_f1`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`,
-`g2_win_step`, `f2mul`, `f2sqr`, `f12mul`, the inversion chains `inv_w4`
-and `inv_bin` and hash-to-G2's ratio chain (two programs, its table and
-its window) run
+`g2_win_step`, `f2mul`, `f2sqr`, `f6mul`, `f12mul`, the inversion chains
+`inv_w4` and `inv_bin`, hash-to-G2's ratio chain (two programs, its table
+and its window) and the standalone `mul` (one job, one warp per lane
+element) run
 on the card as programs of warp jobs (csrc/coop.cuh), traced from their
 plain bodies. Here each encoded program is executed on CPU tensors
 job by job with the plain Fp bodies, stage by stage with its row reuse,
@@ -50,7 +51,7 @@ _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
 smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
-F2, F12 = (2,), (2, 3, 2)
+F2, F6, F12 = (2,), (3, 2), (2, 3, 2)
 
 # kernel -> (plain body, operand fields, lazy terms per operand (ONE: the
 # element 1, which the kernel writes), products and squares)
@@ -75,6 +76,9 @@ BODIES = {
     "f2mul": (tower._f2mul_body, [F2, F2], [3, 3], 3),
     "f2sqr": (tower._f2sqr_body, [F2], [3], 2),
     "f12mul": (tower._f12mul_body, [F12, F12], [3, 3], 54),
+    "f6mul": (tower._f6mul_body, [F6, F6], [3, 3], 18),
+    # one product: the standalone `mul`, laid out one warp per lane element
+    "mul": (fp._mul_fn, [(), ()], [3, 1], 1),
     # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
     "inv_w4": (chains._inv_w4_body, [(), ()], [2, ONE], 494),
     "inv_bin": (fp._inv_bin_body, [(), ()], [2, ONE], 609),
@@ -88,7 +92,10 @@ SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
            "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
-           "f2mul": "tower.cu", "f2sqr": "tower.cu"}
+           "f2mul": "tower.cu", "f2sqr": "tower.cu", "f6mul": "tower.cu", "mul": "fp_mul.cu"}
+# the jobs of each stage, where a kernel's docstring states them
+STAGE_JOBS = {"f2mul": [3, 2], "f2sqr": [2], "f6mul": [18, 12, 6], "f12mul": [54, 36, 18],
+              "mul": [1]}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -327,10 +334,22 @@ def test_tracer_refuses_a_select(body):
 
 @pytest.mark.parametrize("name", sorted(BODIES))
 def test_program_shape(name):
+    """Products, words, and a block's shared memory: the tables, a scratch
+    a warp, and the rows (a PER_WARP kernel's: a set a warp, csrc/coop.cuh
+    `warp_smem_ints`); the jobs of each stage where STAGE_JOBS states
+    them (f6mul: its six f2muls' 18 products, their 12 reduce_lights, the
+    output's 6)."""
     st = coop.stats(coop.slot(name))
     assert st["products"] == BODIES[name][3]
     assert st["words"] <= coop.MAX_WORDS
     assert st["smem_bytes"] <= 232_448  # a block's shared memory on Hopper
+    sets = st["warps"] if name in coop.PER_WARP else 1
+    assert st["smem_bytes"] == 4 * (coop.TABLES + st["warps"] * coop.SCRATCH
+                                    + sets * st["rows"] * fp.W)
+    if name in STAGE_JOBS:
+        w = coop.program(coop.slot(name))
+        starts = w[coop.H_STAGE0 : coop.H_STAGE0 + st["stages"] + 1]
+        assert np.diff(starts).tolist() == STAGE_JOBS[name]
 
 
 def test_programs_fit_the_constant_bank():
@@ -345,15 +364,15 @@ def test_programs_fit_the_constant_bank():
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
     # with the ratio chain's table (399 words) and window (68), and its 191
     # digits, miller_add_iter's 978 words, f2mul's 42, f2sqr's 25,
-    # jac_dbl_f1's 73, jac_add_f1's 125 and add_exact_f1's 194: 11,865
-    # words of seventeen programs, 13,751 of the bank's words with the
-    # digits and the tables, 2,633 left
-    assert (words, digits, coop.TABLES) == (11473 + 198 + 194, 191, 1695)
-    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 2633
+    # jac_dbl_f1's 73, jac_add_f1's 125, add_exact_f1's 194, f6mul's 269
+    # and mul's 15: 12,149 words of nineteen programs, 14,035 of the bank's
+    # words with the digits and the tables, 2,349 left
+    assert (words, digits, coop.TABLES) == (11473 + 198 + 194 + 269 + 15, 191, 1695)
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 2349
     src = (CSRC / "jac_add.cu").read_text()
     assert "static __device__ int g_canon[CANON_WORDS];" in src and "__constant__" not in src
     fake = dict(coop.PROGRAMS)
-    fake[17], fake[18] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[19], fake[20] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -383,16 +402,17 @@ def test_header_mirrors_python():
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
     # Y3, Z3; the same with xQ, yQ; f -> f; X, Y, Z -> X3, Y3, Z3 and P1,
     # P2 -> P1 + P2 over G1 and G2; acc, E -> [4]acc, [4]acc + E over G1
-    # and G2; a, b -> a b
-    # over Fp2 and Fp12; a -> a^2 over Fp2; a, 1 -> a^(p-2); w, 1 -> 16
-    # entries; acc, E -> acc^4 E), as the sources' static_asserts check them
+    # and G2; a, b -> a b over Fp, Fp2, Fp6 and Fp12; a -> a^2 over Fp2;
+    # a, 1 -> a^(p-2); w, 1 -> 16 entries; acc, E -> acc^4 E), as the
+    # sources' static_asserts check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("miller_add_iter", 24, 18),
                               ("f2mul", 4, 2), ("f2sqr", 2, 2), ("cyc_sqr", 12, 12),
                               ("jac_dbl_f1", 3, 3), ("jac_add_f1", 6, 3),
                               ("add_exact_f1", 6, 8),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
-                              ("f12mul", 24, 12), ("inv_w4", 2, 1), ("inv_bin", 2, 1),
+                              ("f12mul", 24, 12), ("f6mul", 12, 6), ("mul", 2, 1),
+                              ("inv_w4", 2, 1), ("inv_bin", 2, 1),
                               ("ratio_table", 4, 32), ("ratio_win", 4, 2)):
         w = coop.program(coop.slot(name))
         assert (w[coop.H_INS], w[coop.H_OUTS]) == (n_in, n_out)
@@ -443,18 +463,20 @@ def test_tracing_leaves_other_callers_the_plain_bodies():
     assert torch.equal(got[2], rl_body(a, c["folds"], c["topf"]))
 
 
-@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1"])
+@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1", "mul"])
 def test_warps_override_builds_apart_and_restores(name):
     """tools/coop_warps.py's variants: another warp count writes another
     header, so its library builds in a directory of its own; the count
-    comes back after. The ratio chain's two programs move together."""
+    comes back after. The ratio chain's two programs move together; mul's
+    count is its warps a block, each warp with its own rows."""
     slots = [coop.slot(p) for p in coop.programs_of(name)]
     default, before = [coop.PROGRAMS[s] for s in slots], kernels.build_dir()
-    with coop_warps.warps(name, 8):
-        assert coop.kernel_stats(name)["warps"] == 8
+    nw = 2 * default[0][1]
+    with coop_warps.warps(name, nw):
+        assert coop.kernel_stats(name)["warps"] == nw
         for s in slots:
-            assert coop.stats(s)["warps"] == 8
-            assert f"constexpr int {coop.PROGRAMS[s][0].upper()}_WARPS = 8;" in coop.header()
+            assert coop.stats(s)["warps"] == nw
+            assert f"constexpr int {coop.PROGRAMS[s][0].upper()}_WARPS = {nw};" in coop.header()
         assert kernels.build_dir() != before
     assert [coop.PROGRAMS[s] for s in slots] == default and kernels.build_dir() == before
 
