@@ -16,11 +16,13 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the eighteen cooperative kernels (csrc/coop.cuh:
+   function; for the twenty cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
    add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul,
    f2sqr, f6mul, f12mul, the Fermat inversions inv_w4, inv_bin,
-   hash-to-G2's ratio_chain, and mul, one warp per lane element),
+   hash-to-G2's ratio_chain, mul, one warp per lane element, and the
+   ladder steps ladder_step_f1, ladder_step_f2, each the add's and the
+   doubling's programs in one block),
    their ptxas line, the dynamic shared memory their library launches
    them with (held equal to their programs' layout) and their programs'
    shape (stages, jobs, rows, warps, words).
@@ -41,7 +43,10 @@ non-zero before the last line:
    ladder_step_f2, ubench_mul and ubench_mul_chain (R = 3) on seeded
    operands at those widths and at S = 1 and 2 (infinity lanes on both
    sides of a ladder step, its bit row all 0, all 1 and mixed), timed at
-   S = 4096; the
+   S = 4096; the cooperative ladder steps also at S = 1024 and at S = 1
+   and 2 on every (bit, accumulator at infinity, addend at infinity), in
+   device ms and bound at S = 1, 2 and 1024 and, every bit set, at S = 1,
+   1024 and 4096; the
    inversions inv_w4 and inv_bin on seeded 2-unit operands (a zero lane:
    0 maps to 0) at those widths and at S = 1024, timed at S = 4096 and in
    device ms at S = 1, 2 and 1024, beside their bound and, at S = 1, the
@@ -122,8 +127,10 @@ non-zero before the last line:
    windowed chains' on every lane, the static accumulator torch.equal to
    scalar_mul_static, psi(S) == -[|u|]S on the 1,023 real lanes and not
    on the lane off G2; the walls of each ladder beside its windowed
-   counterpart. The unfused Miller doubling: f12mul_034(f12sqr(f), c0,
-   c1, c4) through the two standalone kernels on all 63 doubling
+   counterpart, and the device ms of one run of each (`device_totals`),
+   with each kernel's share (the 64 ladder steps'). The unfused Miller
+   doubling: f12mul_034(f12sqr(f), c0, c1, c4) through the two
+   standalone kernels on all 63 doubling
    iterations of a 128-lane Miller loop (phase 4's pairs), torch.equal to
    miller_dbl_iter's f. The microbenchmark at S = 110,592 and R = 40: one
    product, R chained products in one launch and the lane baseline (norm3
@@ -138,8 +145,9 @@ non-zero before the last line:
    stack, spills and static shared memory; `launch_smem`: the cooperative
    kernels' dynamic shared memory, as each library reports it; their and
    canonical's device ms and bound at S = 1, 2 and 1024, f2mul's and
-   f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, and
-   the latency floor at S = 1);
+   f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, the
+   ladder steps' also with every bit set, and the latency floor at S = 1;
+   the ladder steps' device ms over phase 7's 64 launches);
    9. the `ok` JSON line (last).
 """
 
@@ -321,7 +329,8 @@ COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "ja
              "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
              "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower",
              "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add", "add_exact_f1": "jac_add",
-             "f6mul": "tower", "mul": "fp_mul"}
+             "f6mul": "tower", "mul": "fp_mul", "ladder_step_f1": "ladder",
+             "ladder_step_f2": "ladder"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
 # mul's widths on the paths beyond those, each a stack (K, S): frob2's 12 x
@@ -357,6 +366,8 @@ EXACT_BRANCHES = ("double", "infinity", "p2", "p1", "sum")
 JOB_CHAIN_CYCLES = (36 + 38) * 4
 # every (digit, accumulator at infinity, entry at infinity) of a window step
 WIN_COMBOS = [(d, a, e) for d in range(4) for a in (0, 1) for e in (0, 1)]
+# every (bit, accumulator at infinity, addend at infinity) of a ladder step
+LADDER_COMBOS = [(b, a, e) for b in (0, 1) for a in (0, 1) for e in (0, 1)]
 # per kernel k_<name>: ptxas registers, static shared memory, stack, spills
 PTXAS: dict = {}
 # per cooperative kernel: the dynamic shared memory (bytes) its blocks launch
@@ -486,9 +497,9 @@ def _ops_counts():
         "norm3": passes("norm3.kernel", W),
         "f12sqr": f12sqr,
         "f12mul_034": m034,
-        # the add (on every lane), the doubling and the 3-coordinate select
-        "ladder_step_f1": add + dbl + 3 * W,
-        "ladder_step_f2": add_f2 + dbl_f2 + 3 * W * 2,
+        # the doubling and the 3-coordinate select (the add: _work_ops)
+        "ladder_step_f1": dbl + 3 * W,
+        "ladder_step_f2": dbl_f2 + 3 * W * 2,
         "ubench_mul": ub_entry + ub_round,
         # the inversions: their chains' squares and products (inv_w4's
         # table stacks 13 products into 3 calls)
@@ -503,12 +514,19 @@ def _ops_counts():
     }
 
 
-def _work_ops(name: str, args) -> int:
+def _work_ops(name: str, args) -> float:
     """int32 operations per lane element of one call (the chain's depend
-    on its R, its third argument)."""
+    on its R, its third argument; a ladder step's on its bit row, its
+    seventh: the add only where the bit is set, the share of lane
+    elements that need it)."""
+    from lighthouse_tpu_torch.ops.lane import coop
+
     c = _ops_counts()
     if name == "ubench_mul_chain":
         return c["ubench_entry"] + int(args[2]) * c["ubench_round"]
+    if name in coop.LADDERS:  # its programs: the add's, then the doubling's
+        share = float((args[6] != 0).double().mean())
+        return c[name] + share * c[coop.LADDERS[name][0][0]]
     return c[name]
 
 
@@ -739,11 +757,13 @@ SLICE4_COMP = {"norm3": (), "f12sqr": (2, 3, 2), "f12mul_034": (2, 3, 2),
                "ubench_mul": (), "ubench_mul_chain": ()}
 
 
-def _slice4_inputs(rng, shape, kind, bits="mixed"):
+def _slice4_inputs(rng, shape, kind, bits="mixed", combos=()):
     """Seeded operands of slice 4's kernels over the lanes and stack of
     `shape` [*lead, 36, S]: lazy sums inside the entry contracts, infinity
     lanes on both sides of a ladder step, its bit row all 0, all 1 or
-    mixed; the chain at R = 3."""
+    mixed, lanes 0.. planted with `combos` (bit, accumulator at infinity,
+    addend at infinity) on every element of the stack; the chain at R =
+    3."""
     from lighthouse_tpu_torch.crypto.bls.params import P
     from lighthouse_tpu_torch.ops.lane import fp
 
@@ -771,34 +791,58 @@ def _slice4_inputs(rng, shape, kind, bits="mixed"):
     if kind.startswith("ubench"):
         return [t(lazy3()), t(canon())] + ([3] if kind.endswith("chain") else [])
     lanes = torch.arange(S, device=DEVICE)
+    free = lanes >= len(combos)          # the lanes the pattern takes
     acc = [t(canon()), t(lazy3()), t(canon())]
     addend = [t(canon()), t(canon()), t(lazy3())]
-    acc[2][..., lanes % 7 == 3] = 0      # structural infinity (Z = 0) lanes
-    addend[2][..., lanes % 5 == 1] = 0
-    addend[2][..., lanes % 7 == 3] = 0   # both at infinity on some lanes
+    acc[2][..., (lanes % 7 == 3) & free] = 0      # structural infinity (Z = 0) lanes
+    addend[2][..., (lanes % 5 == 1) & free] = 0
+    addend[2][..., (lanes % 7 == 3) & free] = 0   # both at infinity on some lanes
     row = {"0": np.zeros, "1": np.ones}.get(bits)
-    bit = (row((*lead, 1, S)) if row else rng.integers(0, 2, size=(*lead, 1, S)))
-    return acc + addend + [t(bit)]
+    bit = t(row((*lead, 1, S)) if row else rng.integers(0, 2, size=(*lead, 1, S)))
+    for i, (b, a, e) in enumerate(combos):
+        bit[..., i] = b
+        if a:
+            acc[2][..., i] = 0
+        if e:
+            addend[2][..., i] = 0
+    return acc + addend + [bit]
 
 
 def _slice4_holds(rng, out: dict) -> None:
     """Slice 4's six kernels (seven CUDA kernels: the microbenchmark is
     two) against their plain bodies on seeded operands at SLICE4_SHAPES,
-    every ladder bit row, timed at S=4096."""
+    every ladder bit row, timed at S=4096 (mixed bits). The cooperative
+    ladder steps also at S=1024 on every bit row, and at S=1 and 2
+    on every LADDER_COMBOS entry (a hold per lane or pair); in device ms
+    and bound at REDESIGNED_S (mixed bits) and, with every bit set (the
+    add on every lane element, the most work), at S=1, 1024 and 4096
+    (keys `_bits1`)."""
     for name in SLICE4_KERNELS:
+        ladder, coop = name.startswith("ladder"), name in REDESIGNED
         max_err = 0
-        for shape in SLICE4_SHAPES:
-            for bits in (("0", "1", "mixed") if name.startswith("ladder") else ("mixed",)):
+        for shape in SLICE4_SHAPES + ([(36, 1024)] if coop else []):
+            for bits in (("0", "1", "mixed") if ladder else ("mixed",)):
                 args = _slice4_inputs(rng, shape, name, bits)
                 max_err = max(max_err, _hold(name, args, f"{shape} bits={bits}"))
             if shape == SHAPES[0]:
                 if name == "ubench_mul_chain":  # timed at the reference's R
                     args = args[:2] + [UBENCH_R]
-                timing = _time(name, args)
+                timing, main = _time(name, args), args
+        for S in ((1, 2) if coop else ()):
+            for i in range(0, len(LADDER_COMBOS), S):
+                args = _slice4_inputs(rng, (2, 36, S), name, combos=LADDER_COMBOS[i : i + S])
+                max_err = max(max_err, _hold(name, args, f"S={S} {LADDER_COMBOS[i : i + S]}"))
+        if coop:
+            timing.update(_widths_ms(name, main))
+            ones = [*main[:-1], torch.ones_like(main[-1])]
+            timing.update({k + "_bits1": v
+                           for k, v in _widths_ms(name, ones, (1, 1024, 4096)).items()
+                           if k.startswith(("ms_S", "bound_ms_S"))})
         out[name] = dict(max_abs_err=max_err, **timing)
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
-            shapes="S=4096,2x128,S=4097,S=1,S=2", operands="seeded(infinity lanes, bit rows 0/1/mixed)"
-            if name.startswith("ladder") else "seeded",
+            shapes="S=4096,2x128,S=4097,S=1,S=2" + (",S=1024" if coop else ""),
+            operands="seeded(infinity lanes, bit rows 0/1/mixed"
+            + (", every combination at S=1,2)" if coop else ")") if ladder else "seeded",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
@@ -1295,6 +1339,19 @@ def device_totals(events) -> dict:
     return dict(device_ms=total,
                 device_ms_all_entries=sum(_device_time(e) for e in events) / 1e3,
                 glue_ms=total - sum(ours.values()), kernels_ms=ours)
+
+
+def _profiled(fn):
+    """The profiler's key averages of one call of fn (after one call
+    unprofiled), for `device_totals`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
 
 
 def _device_side(events) -> list:
@@ -1848,16 +1905,25 @@ def _ladders_1024(card: str, out: dict) -> dict:
             for k in (pair if rep % 2 == 0 else pair[::-1]):
                 times[k].append(_wall(runs[k]))
     walls = {k: statistics.median(v) for k, v in times.items()}
+    # device ms of one run of each, every device event once, and the
+    # ladder steps' share (all 64 launches)
+    device = {k.removesuffix("_s") + "_device_ms": device_totals(_profiled(fn))
+              for k, fn in runs.items()}
     rows = rbits.to(torch.int32)[:, None, :]
-    for name, pt in (("ladder_step_f1", apk), ("ladder_step_f2", sig)):
+    for name, pt, run in (("ladder_step_f1", apk, "g1_ladder_device_ms"),
+                          ("ladder_step_f2", sig, "g2_ladder_with_static_device_ms")):
         out.setdefault(name, {}).update(
             slice4_path_S=S,
-            slice4_path_call_ms=_median_ms(lambda: _op(name)(*pt, *pt, rows[0])))
+            slice4_path_call_ms=_median_ms(lambda: _op(name)(*pt, *pt, rows[0])),
+            slice4_path_device_ms=device[run]["kernels_ms"].get(f"k_{name}"))
     say("ladders", bucket=S, card=repr(card), r_apk="jac_eq scalar_mul_w2 on all lanes",
         r_sig="jac_eq scalar_mul_w2 on all lanes",
         u_sig="torch.equal scalar_mul_static",
         subgroup=f"psi(S)==-[|u|]S on {len(sub) - 1} real lanes, False on the lane off G2",
-        counted_run_s=f"{wall:.4f}", **{k: f"{v:.4f}" for k, v in walls.items()})
+        counted_run_s=f"{wall:.4f}", **{k: f"{v:.4f}" for k, v in walls.items()},
+        **{k: f"{v['device_ms']:.4f}" for k, v in device.items()},
+        kernels_device_ms=json.dumps({k: {n: round(ms, 4) for n, ms in v["kernels_ms"].items()}
+                                      for k, v in device.items()}, separators=(",", ":")))
     return walls
 
 
@@ -2001,7 +2067,8 @@ def main() -> int:
             # the CUDA-event call ms at S=4096 and at each path's own width
             **{key: k[key] for key in ("call_ms", "path_S", "path_call_ms", "bls_path_S",
                                        "bls_path_call_ms", "slice4_path_S",
-                                       "slice4_path_call_ms") if key in k},
+                                       "slice4_path_call_ms", "slice4_path_device_ms")
+               if key in k},
             # the cooperative kernels' device ms and bound at each
             # path width, and their blocks' dynamic shared memory
             **{key: v for key, v in k.items()

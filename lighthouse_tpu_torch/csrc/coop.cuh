@@ -390,7 +390,7 @@ __device__ __forceinline__ void run_warp(const int* prog, int* smem, int rows, i
 // ------------------------------------------------ the group kernels' rows
 // A point is 3 coordinates (X, Y, Z) of C rows each, in global memory as
 // three [K, C, W, S] batches. The group kernels (jac_dbl.cu, jac_add.cu,
-// chains.cu) make their plain bodies' selects around the program: one
+// chains.cu, ladder.cu) make their plain bodies' selects around the program: one
 // block is one lane element, so a structural-infinity or digit test is
 // uniform over the block and only picks the rows the block writes.
 

@@ -197,14 +197,10 @@ __device__ __forceinline__ void canon_reduce_body(int* x, Col f40 = c_folds + 40
   norm<W, CANON_FOLD_D, true>(x);
 }
 
-// Out-of-line entries for the group kernels: one copy of the product's
-// code (registers inside), operands in the caller's local memory.
+// Out-of-line entries for the one-thread tower kernels: one copy of the
+// product's code (registers inside), operands in the caller's local memory.
 __device__ __noinline__ void fp_mul(int* out, const int* a, const int* b) {
   mul_body<true, true>(out, a, b);
-}
-
-__device__ __noinline__ void fp_sqr(int* out, const int* a) {
-  sqr_body(out, a);
 }
 
 __device__ __noinline__ void fp_reduce_light(int* x) { reduce_light_body(x); }

@@ -26,8 +26,8 @@
 // (`__syncthreads_or`), runs the program, then writes P2 (P1 at infinity),
 // P1 (P2 at infinity), each re-read from global memory, or the sum. G1's
 // program replaces one thread per lane element that kept about a dozen
-// field temporaries in local memory (jac.cuh, which the ladder steps
-// still use).
+// field temporaries in local memory. The ladder steps (ladder.cu) run
+// both programs too, with the doubling's.
 //
 // K4a: `add_exact_f1`, the exact add over Fp (G1) in one kernel: the
 // reference's `add(FP1, p1, p2, exact=True)` (lighthouse_tpu/ops/lane/

@@ -21,7 +21,7 @@
 // over Fp2 7 stages of 28 jobs (16 products, 12 reduce_light) on 18 rows.
 // The grid is one block per lane element. G1's program replaces one
 // thread per lane element that kept the coordinates and temporaries in
-// local memory (jac.cuh, which the ladder steps still use).
+// local memory. The ladder steps (ladder.cu) run both programs too.
 #include "coop.cuh"
 #include "coop_programs.h"
 

@@ -41,6 +41,12 @@ A program holds no loop either: a chain whose steps repeat is two
 programs, one run once and one run a step at a time by its kernel, which
 moves the step's operands between runs (CHAINS; csrc/htc.cu).
 
+A kernel may also run programs that other kernels run, in one block: a
+per-lane ladder step runs the add's program, where its lane element's
+bit is set, then the doubling's (LADDERS; csrc/ladder.cu). The bit is a
+select like the add's infinity, uniform over the block, so where it is
+clear the block skips the add's program.
+
 A one-job program (the standalone `mul`) would leave all but one warp of
 such a block idle, and the block's copy of the tables would cost as much
 as its job. Its kernel lays the block out by warp instead (PER_WARP): a
@@ -177,6 +183,27 @@ PER_WARP = frozenset({"mul"})
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
 # the window's
 CHAINS = {"ratio_chain": ("ratio_table", "ratio_win")}
+# kernels that run other kernels' programs in one block, on a warp count
+# of their own: kernel -> (its programs, warps per lane element). The
+# per-lane ladder step (csrc/ladder.cu) runs the add's program where the
+# lane element's bit is set, then the doubling's; the programs stay where
+# jac_add.cu and jac_dbl.cu run them, so the ladders add no word to the
+# bank. With 2 / 4 / 8 warps G1's add and doubling take 13 + 8 / 9 + 6 /
+# 7 + 6 job rounds, G2's 38 + 15 / 23 + 9 / 15 + 7. All 64 launches of a
+# ladder run at its batch's width, 1,024 lanes for a gossip batch. With
+# random bits, on 2 / 4 / 8 warps ladder_step_f1 takes 0.02331 / 0.01767 /
+# 0.01670 ms at one lane (its bit set), 0.04174 / 0.03751 / 0.04466 at
+# 1,024 lanes and 0.12715 / 0.12458 / 0.14948 at 4,096: 4 warps;
+# ladder_step_f2 0.01742 / 0.01083 / 0.00909 at one lane (its bit clear:
+# the doubling alone), 0.09683 / 0.09011 / 0.08451 at 1,024 and 0.28837 /
+# 0.26677 / 0.26786 at 4,096: 8 warps (4 blocks an SM, so 1,024 lanes take
+# two waves, of 22 job rounds a block against 32 on 4 warps). On 4 warps
+# (8 blocks an SM, one wave at 1,024 lanes) a step with every bit set
+# takes about as long as one with half of them: the blocks that skip the
+# add end early, but the wave lasts as long as its blocks that run it.
+# Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
+LADDERS = {"ladder_step_f1": (("jac_add_f1", "jac_dbl_f1"), 4),
+           "ladder_step_f2": (("jac_add_f2", "jac_dbl_f2"), 8)}
 
 
 FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)
@@ -416,23 +443,28 @@ def program(slot: int) -> np.ndarray:
 
 
 def slot(name: str) -> int:
-    """The program slot of kernel `name` (of a chain kernel: its first)."""
+    """The program slot of kernel `name` (of a chain or ladder kernel: its
+    first program's)."""
     name = programs_of(name)[0]
     return next(k for k, (n, _) in PROGRAMS.items() if n == name)
 
 
 def programs_of(name: str) -> tuple:
     """The programs kernel `name` runs."""
+    if name in LADDERS:
+        return LADDERS[name][0]
     return CHAINS.get(name, (name,))
 
 
-def stats(slot: int) -> dict:
-    """Stages, jobs, rows and the shared memory of one block (bytes); a
-    PER_WARP kernel's block holds rows for each of its warps, each of
-    which runs every job (its rounds)."""
+def stats(slot: int, nw: int | None = None) -> dict:
+    """Stages, jobs, rows and the shared memory of one block (bytes) of
+    the program in `slot` on `nw` warps (default: its own); a PER_WARP
+    kernel's block holds rows for each of its warps, each of which runs
+    every job (its rounds)."""
     w = program(slot)
     n_st, n_jobs, n_rows = int(w[H_STAGES]), int(w[H_JOBS]), int(w[H_ROWS])
-    name, nw = PROGRAMS[slot]
+    name, own = PROGRAMS[slot]
+    nw = own if nw is None else nw
     starts = w[H_STAGE0 : H_STAGE0 + n_st + 1]
     per_stage = np.diff(starts)
     jobs = w[H_STAGE0 + n_st + 1 :][: JOB_WORDS * n_jobs].reshape(-1, JOB_WORDS)
@@ -447,9 +479,17 @@ def stats(slot: int) -> dict:
 
 
 def kernel_stats(name: str) -> dict:
-    """`stats` of kernel `name`: its program's, or the ratio chain's over
-    its table run and its window runs, on the rows of both programs and
-    the entries."""
+    """`stats` of kernel `name`: its program's; a ladder step's over its
+    two programs on its own warps, both run (a bit set), on the rows of
+    the larger; or the ratio chain's over its table run and its window
+    runs, on the rows of both programs and the entries."""
+    if name in LADDERS:
+        progs, nw = LADDERS[name]
+        parts = [stats(slot(p), nw) for p in progs]
+        rows = max(p["rows"] for p in parts)
+        return dict(**{k: sum(p[k] for p in parts)
+                       for k in ("stages", "jobs", "products", "rounds", "words")},
+                    rows=rows, warps=nw, smem_bytes=4 * (TABLES + nw * SCRATCH + rows * W))
     if name not in CHAINS:
         return stats(slot(name))
     table, win = (stats(slot(p)) for p in programs_of(name))
@@ -468,7 +508,7 @@ def header() -> str:
     """The generated header the cooperative kernels include (kernels.build
     writes it into the build directory): per program, its slot, warps per
     lane element, rows, inputs and outputs as constexprs and its words as
-    a `__constant__` array."""
+    a `__constant__` array; per ladder step, its warps."""
     digits = [int(d) for d in htc._WIN_IDX]
     words = sum(len(program(slot)) for slot in PROGRAMS) + len(digits)
     if words + TABLES > BANK_WORDS:  # fp_lane.cuh's c_folds, c_topfm beside them
@@ -485,6 +525,10 @@ def header() -> str:
         lines += ["    " + ", ".join(map(str, w[i : i + 12].tolist())) + ","
                   for i in range(0, len(w), 12)]
         lines.append("};")
+    # the ladder steps' warps (csrc/ladder.cu), beside their programs' own
+    for name, (progs, nw) in sorted(LADDERS.items()):
+        lines += ["", f"// {name}: " + ", then ".join(progs),
+                  f"constexpr int {name.upper()}_WARPS = {nw};"]
     # the ratio chain's window digits (csrc/htc.cu), most significant first
     lines += ["", f"constexpr int RATIO_WINDOWS = {len(digits)};",
               f"static __constant__ int c_ratio_idx[{len(digits)}] = {{"]

@@ -11,8 +11,10 @@ csrc/jac_add.cu, all four cooperative, their programs traced from
 `_dbl_f1_body`, `_add_core_f1`, `_dbl_f2_body` and `_add_core_f2` by
 coop.py, the adds' infinity selects in their kernels' epilogue), and so
 does one step of the per-lane dynamic ladder (`ladder_step_f1`,
-`ladder_step_f2`: csrc/ladder.cu, one thread per lane element over
-csrc/jac.cuh); the bodies below are their plain PyTorch versions.
+`ladder_step_f2`: csrc/ladder.cu, cooperative, running the add's program
+where the lane's bit is set and the doubling's, with the bit and the
+infinity selects uniform over the block); the bodies below are their
+plain PyTorch versions.
 `add(exact=True)` over G1 launches ONE kernel too (`add_exact_f1`,
 csrc/jac_add.cu, cooperative: its program traced from `_add_exact_core_f1`,
 the add, the doubling of P1 and the collision check's H and R in one

@@ -51,7 +51,7 @@ SOURCES = {
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
 }
-HEADERS = ("fp_lane.cuh", "tower.cuh", "jac.cuh", "coop.cuh", "canon.cuh")
+HEADERS = ("fp_lane.cuh", "tower.cuh", "coop.cuh", "canon.cuh")
 
 # component shape of each field's lane element
 FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)
@@ -139,7 +139,7 @@ def nvcc_path() -> str:
 
 # the header of the cooperative kernels' programs (ops/lane/coop.py), which
 # build() writes into the build directory for csrc/miller.cu, jac_dbl.cu,
-# jac_add.cu, chains.cu, tower.cu, inv.cu, htc.cu and fp_mul.cu
+# jac_add.cu, chains.cu, tower.cu, inv.cu, htc.cu, fp_mul.cu and ladder.cu
 PROGRAMS_H = "coop_programs.h"
 
 

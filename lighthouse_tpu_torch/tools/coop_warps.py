@@ -1,9 +1,10 @@
 """Device time of a cooperative kernel at several warps per lane element.
 
 A cooperative kernel (csrc/coop.cuh) takes its warps per lane element from
-ops/lane/coop.py PROGRAMS through the generated header. This tool builds
-the libraries once per warp count asked for (PROGRAMS' count replaced
-while the header is written, each build in its own directory),
+ops/lane/coop.py PROGRAMS (a ladder step: LADDERS) through the generated
+header. This tool builds the libraries once per warp count asked for (the
+kernel's count replaced while the header is written, each build in its
+own directory),
 holds every variant's outputs torch.equal to the plain body on the same
 seeded operands, then times the variants in turns (a b b a ..., the
 profiler's device time of REPS launches each) and prints one JSON line per
@@ -22,15 +23,19 @@ Run on a machine with a CUDA card:
     python -m lighthouse_tpu_torch.tools.coop_warps add_exact_f1 --S 1 2048 4096 --warps 3 4 5
     python -m lighthouse_tpu_torch.tools.coop_warps f6mul --S 1 1024 4096 --warps 6 9 12 16 18 32
     python -m lighthouse_tpu_torch.tools.coop_warps mul --S 1 1024 4096 --K 1 2 12 --warps 1 2 4 8 16
+    python -m lighthouse_tpu_torch.tools.coop_warps ladder_step_f2 --S 1024 4096 --warps 2 4 8
 
 Kernels: miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1,
 jac_add_f1, add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step,
 g2_win_step, f2mul, f2sqr, f6mul, f12mul, inv_w4, inv_bin, ratio_chain
-(its two programs on one warp count), and mul, laid out one warp per lane
-element (coop.PER_WARP: its warps a block, each on its own element).
-Several widths (--S) and stack depths (--K: operands [K, ..., S], K x S
-lane elements) share one build per warp count. The seeded operands put
-no point at infinity.
+(its two programs on one warp count), mul, laid out one warp per lane
+element (coop.PER_WARP: its warps a block, each on its own element), and
+the ladder steps ladder_step_f1 and ladder_step_f2 (coop.LADDERS: the
+add's and the doubling's programs on a warp count of the step's own,
+their kernels' counts untouched). Several widths (--S) and stack depths
+(--K: operands [K, ..., S], K x S lane elements) share one build per warp
+count. The seeded operands put no point at infinity; a ladder step's bit
+is 0 or 1 at random, a window step's digit 0 to 3.
 """
 
 from __future__ import annotations
@@ -60,13 +65,23 @@ def _ops():
             "f12mul": tower.f12mul, "mul": fp.mul,
             "inv_w4": chains.inv_w4,
             "inv_bin": fp.inv_bin,
-            "ratio_chain": htc.ratio_chain_op}
+            "ratio_chain": htc.ratio_chain_op,
+            "ladder_step_f1": J._ladder_step_f1, "ladder_step_f2": J._ladder_step_f2}
 
 
 @contextlib.contextmanager
 def warps(name: str, nw: int):
     """coop.PROGRAMS with `nw` warps per lane element for kernel `name`
-    (for every program it runs)."""
+    (for every program it runs); for a ladder step, coop.LADDERS' count,
+    its programs' own left as they are."""
+    if name in coop.LADDERS:
+        old = coop.LADDERS[name]
+        coop.LADDERS[name] = (old[0], nw)
+        try:
+            yield
+        finally:
+            coop.LADDERS[name] = old
+        return
     slots = [coop.slot(p) for p in coop.programs_of(name)]
     old = {s: coop.PROGRAMS[s] for s in slots}
     for s in slots:
@@ -79,15 +94,15 @@ def warps(name: str, nw: int):
 
 def operands(name: str, S: int, seed: int = 6, K: int = 1) -> list:
     """Seeded operands of kernel `name` on S lanes (a stack of K where K >
-    1): standard limbs, one int32 digit in 0..3 per lane for a ROW
-    operand."""
+    1): standard limbs, one int32 per lane for a ROW operand (a ladder
+    step's bit in 0..1, a window step's digit in 0..3)."""
     rng = np.random.default_rng(seed)
     _, ins, _ = kernels.ENTRIES[_ops()[name].symbol]
     lead = (K,) if K > 1 else ()
     out = []
     for kind in ins:
         if kind == kernels.ROW:
-            a = rng.integers(0, 4, (*lead, 1, S), dtype=np.int32)
+            a = rng.integers(0, 2 if name in coop.LADDERS else 4, (*lead, 1, S), dtype=np.int32)
         else:
             a = rng.integers(0, 1 << fp.B, (*lead, *kind, fp.W, S), dtype=np.int32)
         out.append(torch.from_numpy(a).cuda())

@@ -117,18 +117,52 @@ def test_exact_add_planted_lanes_take_every_case(monkeypatch):
 def test_cooperative_kernels_are_the_programs_kernels():
     """COOP_LIBS (phase 2's `[build]` lines, phase 3's widths) names each
     kernel that runs a cooperative program, by the library that launches
-    it, and REDESIGNED is that set: eighteen, among them f6mul (tower)
-    and mul (fp_mul, one warp per lane element), held at their paths'
-    widths, mul's stacks in MUL_S."""
+    it, and REDESIGNED is that set: twenty, among them f6mul (tower),
+    mul (fp_mul, one warp per lane element) and the ladder steps (ladder,
+    the add's and the doubling's programs in one block), held at their
+    paths' widths, mul's stacks in MUL_S."""
     from lighthouse_tpu_torch.ops.lane import coop, kernels
 
     names = {n for n, _ in coop.PROGRAMS.values()}
     for chain, parts in coop.CHAINS.items():
         names = (names - set(parts)) | {chain}
-    assert set(smoke.COOP_LIBS) == names and len(names) == 18
+    names |= set(coop.LADDERS)
+    assert set(smoke.COOP_LIBS) == names and len(names) == 20
+    assert {smoke.COOP_LIBS[n] for n in coop.LADDERS} == {"ladder"}
     assert smoke.REDESIGNED == tuple(smoke.COOP_LIBS)
     for name, lib in smoke.COOP_LIBS.items():
         assert kernels.ENTRIES[smoke._op(name).symbol][0] == lib, name
     assert (smoke.COOP_LIBS["f6mul"], smoke.COOP_LIBS["mul"]) == ("tower", "fp_mul")
     assert coop.PER_WARP == {"mul"}
     assert smoke.MUL_S == (1, 2, 1024, (12, 1), (2, 1), (2, 1024))
+
+
+def test_ladder_operands_and_bound_follow_the_bits(monkeypatch):
+    """A ladder step's seeded operands plant LADDER_COMBOS' (bit,
+    accumulator at infinity, addend at infinity) on lanes 0.., on every
+    element of the stack, the pattern on the rest; its bound counts the
+    doubling on every lane element and the add where the bit is set (the
+    kernel skips it elsewhere)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.ops.lane import coop
+
+    monkeypatch.setattr(smoke, "DEVICE", "cpu")
+    assert len(smoke.LADDER_COMBOS) == 8
+    for name in ("ladder_step_f1", "ladder_step_f2"):
+        args = smoke._slice4_inputs(np.random.default_rng(16), (2, 36, 12), name,
+                                    combos=smoke.LADDER_COMBOS)
+        nc = 2 if name.endswith("f2") else 1
+        zero = [(z == 0).flatten(-1 - nc, -2).all(-2) for z in (args[2], args[5])]
+        for i, (b, a, e) in enumerate(smoke.LADDER_COMBOS):
+            assert args[6][:, 0, i].tolist() == [b, b]
+            assert zero[0][:, i].tolist() == [bool(a)] * 2
+            assert zero[1][:, i].tolist() == [bool(e)] * 2
+        assert zero[0][:, 10].all() and zero[1][:, 11].all()  # lanes 10, 11: the pattern's
+        c = smoke._ops_counts()
+        add, dbl = coop.LADDERS[name][0]
+        ones = [*args[:6], torch.ones_like(args[6])]
+        assert smoke._work_ops(name, [*args[:6], torch.zeros_like(args[6])]) == c[name]
+        assert smoke._work_ops(name, ones) == c[name] + c[add]
+        assert smoke._work_ops(name, args) == c[name] + c[add] * float(args[6].double().mean())
+        assert c[name] == c[dbl] + 3 * 36 * nc

@@ -17,7 +17,9 @@ on every digit and infinity on either side, and `jac_add_f1`'s and
 `_add_f2_body`, with P1, P2, both or neither at infinity;
 `add_exact_f1`'s with its epilogue (canonical() of H and R, the five-way
 select) against `_add_exact_f1_body` on real points, every case of the
-select taken; the ratio
+select taken; the per-lane ladder steps as their kernels compose the
+add's and the doubling's programs with the infinity and bit selects,
+against `_ladder_step_f1_body` and `_ladder_step_f2_body`; the ratio
 chain's table program, then its window program once
 a digit, against `_ratio_chain_body` and the op-by-op chain, whose value
 is the host's w^((p^2 - 9) / 16).
@@ -240,6 +242,48 @@ def test_add_exact_program_with_epilogue_equals_plain_body(monkeypatch):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("name", ["ladder_step_f1", "ladder_step_f2"])
+def test_ladder_step_programs_with_selects_equal_plain_body(name):
+    """A ladder step as its kernel (csrc/ladder.cu) computes it, over G1
+    and G2: the add's program maps (acc, addend) to the sum and
+    `_add_select` picks per lane element; where the bit is clear the
+    kernel keeps the accumulator (it skips the add); the doubling's
+    program maps the addend to its double. Bit rows 0, 1 and mixed, each
+    with the accumulator, the addend, both or neither at infinity, on 2 x 3
+    lane elements; limb for limb `_ladder_step_f1_body` / `_f2_body`."""
+    f2 = name == "ladder_step_f2"
+    comp, nc = (F2, 2) if f2 else ((), 1)
+    add_name, dbl_name = coop.programs_of(name)
+    assert (add_name, dbl_name) == (("jac_add_f2", "jac_dbl_f2") if f2
+                                    else ("jac_add_f1", "jac_dbl_f1"))
+    body = J._ladder_step_f2_body if f2 else J._ladder_step_f1_body
+    rng = np.random.default_rng(2016)
+    lead, S = (2,), 3
+    c = fp.consts("cpu")
+
+    def run(prog, pts):
+        out = coop.run_reference(coop.program(coop.slot(prog)),
+                                 torch.cat([rows(a, lead) for a in pts]), c["folds"], c["topf"])
+        return [unrows(out[nc * i : nc * (i + 1)], lead, comp, S) for i in range(3)]
+
+    mixed = torch.tensor([[[1, 0, 1]], [[0, 1, 0]]], dtype=torch.int32)
+    for bit in (torch.zeros_like(mixed), torch.ones_like(mixed), mixed):
+        acc = [lazy(rng, lead, comp, S, t) for t in (1, 2, 1)]
+        addend = [lazy(rng, lead, comp, S, t) for t in (1, 1, 2)]
+        for e, (inf1, inf2) in enumerate((a, b) for a in (0, 1) for b in (0, 1)):
+            k, s = divmod(e, S)
+            if inf1:
+                acc[2][k, ..., s] = 0
+            if inf2:
+                addend[2][k, ..., s] = 0
+        picked = J._add_select(acc, addend, run(add_name, (*acc, *addend)), f2)
+        kept = [J._wh(bit[..., 0, :] != 0, p, a, nc) for p, a in zip(picked, acc)]
+        got = (*kept, *run(dbl_name, addend))
+        want = body(c["folds"], c["topf"], *acc, *addend, bit)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+
+
 def _ratio_chain_by_launches(w):
     """The chain as `ratio_chain` ran it before it was one kernel: one
     `f2sqr` or `f2mul` call at a time (here their plain bodies)."""
@@ -416,6 +460,14 @@ def test_header_mirrors_python():
                               ("ratio_table", 4, 32), ("ratio_win", 4, 2)):
         w = coop.program(coop.slot(name))
         assert (w[coop.H_INS], w[coop.H_OUTS]) == (n_in, n_out)
+    # the ladder steps run their programs on warps of their own, which
+    # the header writes from LADDERS; ladder.cu takes them from it
+    src = (CSRC / "ladder.cu").read_text()
+    assert not re.search(r"constexpr int \w*WARPS = \d", src)
+    for name, (progs, nw) in coop.LADDERS.items():
+        assert gen[f"{name.upper()}_WARPS"] == nw
+        assert f"lh::coop::{name.upper()}_WARPS" in src
+        assert all(f"lh::coop::c_prog_{p}" in src for p in progs)
 
 
 @pytest.mark.parametrize("name", sorted(BODIES))
@@ -463,22 +515,30 @@ def test_tracing_leaves_other_callers_the_plain_bodies():
     assert torch.equal(got[2], rl_body(a, c["folds"], c["topf"]))
 
 
-@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1", "mul"])
+@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1", "mul",
+                                  "ladder_step_f2"])
 def test_warps_override_builds_apart_and_restores(name):
     """tools/coop_warps.py's variants: another warp count writes another
     header, so its library builds in a directory of its own; the count
     comes back after. The ratio chain's two programs move together; mul's
-    count is its warps a block, each warp with its own rows."""
+    count is its warps a block, each warp with its own rows; a ladder
+    step's count is its own, its programs' kernels keep theirs."""
     slots = [coop.slot(p) for p in coop.programs_of(name)]
     default, before = [coop.PROGRAMS[s] for s in slots], kernels.build_dir()
-    nw = 2 * default[0][1]
+    ladder = coop.LADDERS.get(name)
+    nw = 2 * (ladder[1] if ladder else default[0][1])
     with coop_warps.warps(name, nw):
         assert coop.kernel_stats(name)["warps"] == nw
-        for s in slots:
-            assert coop.stats(s)["warps"] == nw
-            assert f"constexpr int {coop.PROGRAMS[s][0].upper()}_WARPS = {nw};" in coop.header()
+        if ladder:
+            assert f"constexpr int {name.upper()}_WARPS = {nw};" in coop.header()
+            assert [coop.PROGRAMS[s] for s in slots] == default
+        else:
+            for s in slots:
+                assert coop.stats(s)["warps"] == nw
+                assert f"constexpr int {coop.PROGRAMS[s][0].upper()}_WARPS = {nw};" in coop.header()
         assert kernels.build_dir() != before
     assert [coop.PROGRAMS[s] for s in slots] == default and kernels.build_dir() == before
+    assert coop.LADDERS.get(name) == ladder
 
 
 def test_warps_tool_compares_one_output_and_several():
