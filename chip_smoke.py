@@ -16,10 +16,11 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the twenty cooperative kernels (csrc/coop.cuh:
+   function; for the twenty-two cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
    add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul,
-   f2sqr, f6mul, f12mul, the Fermat inversions inv_w4, inv_bin,
+   f2sqr, f6mul, f12mul, f12sqr, f12mul_034, the Fermat inversions inv_w4,
+   inv_bin,
    hash-to-G2's ratio_chain, mul, one warp per lane element, and the
    ladder steps ladder_step_f1, ladder_step_f2, each the add's and the
    doubling's programs in one block),
@@ -46,7 +47,9 @@ non-zero before the last line:
    S = 4096; the cooperative ladder steps also at S = 1024 and at S = 1
    and 2 on every (bit, accumulator at infinity, addend at infinity), in
    device ms and bound at S = 1, 2 and 1024 and, every bit set, at S = 1,
-   1024 and 4096; the
+   1024 and 4096; the cooperative f12sqr and f12mul_034 also at S = 1024
+   and 128 (F12_S: the unfused doubling's width), in device ms and bound
+   at S = 1, 2, 1024 and 128; the
    inversions inv_w4 and inv_bin on seeded 2-unit operands (a zero lane:
    0 maps to 0) at those widths and at S = 1024, timed at S = 4096 and in
    device ms at S = 1, 2 and 1024, beside their bound and, at S = 1, the
@@ -132,9 +135,12 @@ non-zero before the last line:
    doubling: f12mul_034(f12sqr(f), c0, c1, c4) through the two
    standalone kernels on all 63 doubling
    iterations of a 128-lane Miller loop (phase 4's pairs), torch.equal to
-   miller_dbl_iter's f. The microbenchmark at S = 110,592 and R = 40: one
-   product, R chained products in one launch and the lane baseline (norm3
-   on both operands, R launches of mul), against Python ints, then its
+   miller_dbl_iter's f, and the device ms of one run of the 63 beside
+   the 63 fused miller_dbl_iter launches on the same operands
+   (`device_totals`), each kernel's share. The microbenchmark at S =
+   110,592 and R = 40: one product, R chained products in one launch and
+   the lane baseline (norm3 on both operands, R launches of mul), against
+   Python ints, then its
    ms per launch and per element-product (lighthouse_tpu_torch.tools.
    ubench_mul.run), there and at 1,024 lanes.
 8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
@@ -330,7 +336,7 @@ COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "ja
              "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower",
              "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add", "add_exact_f1": "jac_add",
              "f6mul": "tower", "mul": "fp_mul", "ladder_step_f1": "ladder",
-             "ladder_step_f2": "ladder"}
+             "ladder_step_f2": "ladder", "f12sqr": "tower", "f12mul_034": "tower"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
 # mul's widths on the paths beyond those, each a stack (K, S): frob2's 12 x
@@ -343,6 +349,11 @@ MUL_S = (*REDESIGNED_S, (12, 1), (2, 1), (2, 1024))
 # on one element of the recorded stack (Fp2 operands [2, W, S])
 F2_S = (*REDESIGNED_S, 2048, (4, 2048))
 F2_KERNELS = ("f2mul", "f2sqr")
+# f12sqr's and f12mul_034's width beyond those: 128 lanes, where phase 7's
+# unfused Miller doubling runs them; held there on seeded operands and
+# read in device ms
+F12_S = (*REDESIGNED_S, 128)
+F12_KERNELS = ("f12sqr", "f12mul_034")
 # the G1 group kernels' widths in a 4,096-lane commit MSM (ops/lane/msm.py):
 # its walk at 4,096 lanes, its lane sum at 2,048 ... 1; held there (the add
 # on every infinity combination, ADD_COMBOS; the exact add on its planted
@@ -812,15 +823,18 @@ def _slice4_holds(rng, out: dict) -> None:
     """Slice 4's six kernels (seven CUDA kernels: the microbenchmark is
     two) against their plain bodies on seeded operands at SLICE4_SHAPES,
     every ladder bit row, timed at S=4096 (mixed bits). The cooperative
-    ladder steps also at S=1024 on every bit row, and at S=1 and 2
-    on every LADDER_COMBOS entry (a hold per lane or pair); in device ms
-    and bound at REDESIGNED_S (mixed bits) and, with every bit set (the
-    add on every lane element, the most work), at S=1, 1024 and 4096
-    (keys `_bits1`)."""
+    ones also at their widths (the ladder steps at S=1024 on every bit
+    row, f12sqr and f12mul_034 at F12_S), in device ms and bound there
+    (the ladder steps with mixed bits); the ladder steps also at S=1 and 2
+    on every LADDER_COMBOS entry (a hold per lane or pair) and, with every
+    bit set (the add on every lane element, the most work), in device ms
+    and bound at S=1, 1024 and 4096 (keys `_bits1`)."""
     for name in SLICE4_KERNELS:
         ladder, coop = name.startswith("ladder"), name in REDESIGNED
+        widths = F12_S if name in F12_KERNELS else REDESIGNED_S
+        wide = [(36, S) for S in widths if coop and (36, S) not in SLICE4_SHAPES]
         max_err = 0
-        for shape in SLICE4_SHAPES + ([(36, 1024)] if coop else []):
+        for shape in SLICE4_SHAPES + wide:
             for bits in (("0", "1", "mixed") if ladder else ("mixed",)):
                 args = _slice4_inputs(rng, shape, name, bits)
                 max_err = max(max_err, _hold(name, args, f"{shape} bits={bits}"))
@@ -828,19 +842,20 @@ def _slice4_holds(rng, out: dict) -> None:
                 if name == "ubench_mul_chain":  # timed at the reference's R
                     args = args[:2] + [UBENCH_R]
                 timing, main = _time(name, args), args
-        for S in ((1, 2) if coop else ()):
+        for S in ((1, 2) if ladder else ()):
             for i in range(0, len(LADDER_COMBOS), S):
                 args = _slice4_inputs(rng, (2, 36, S), name, combos=LADDER_COMBOS[i : i + S])
                 max_err = max(max_err, _hold(name, args, f"S={S} {LADDER_COMBOS[i : i + S]}"))
         if coop:
-            timing.update(_widths_ms(name, main))
+            timing.update(_widths_ms(name, main, widths))
+        if ladder:
             ones = [*main[:-1], torch.ones_like(main[-1])]
             timing.update({k + "_bits1": v
                            for k, v in _widths_ms(name, ones, (1, 1024, 4096)).items()
                            if k.startswith(("ms_S", "bound_ms_S"))})
         out[name] = dict(max_abs_err=max_err, **timing)
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
-            shapes="S=4096,2x128,S=4097,S=1,S=2" + (",S=1024" if coop else ""),
+            shapes="S=4096,2x128,S=4097,S=1,S=2" + "".join(f",S={sh[-1]}" for sh in wide),
             operands="seeded(infinity lanes, bit rows 0/1/mixed"
             + (", every combination at S=1,2)" if coop else ")") if ladder else "seeded",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
@@ -1962,14 +1977,25 @@ def _unfused_doubling(out: dict) -> None:
     for i, (f, (_, want)) in enumerate(zip(fs, calls, strict=True)):
         if not torch.equal(f, want):
             raise AssertionError(f"unfused doubling {i}: f12mul_034(f12sqr(f)) != miller_dbl_iter's f")
+    # device ms of one run of the 63 unfused doublings and of the 63 fused
+    # miller_dbl_iter launches on the same operands, each device event once
+    device = {"unfused": device_totals(_profiled(unfused)),
+              "fused": device_totals(_profiled(lambda: [OP._dbl_iter(*args)
+                                                        for args, _ in calls]))}
     f_mid = calls[len(calls) // 2][0][0].contiguous()
     ln = [a.contiguous() for a in lines[len(lines) // 2]]
     out.setdefault("f12sqr", {}).update(
-        slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12sqr(f_mid)))
+        slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12sqr(f_mid)),
+        slice4_path_device_ms=device["unfused"]["kernels_ms"].get("k_f12sqr"))
     out.setdefault("f12mul_034", {}).update(
-        slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12mul_034(f_mid, *ln)))
+        slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12mul_034(f_mid, *ln)),
+        slice4_path_device_ms=device["unfused"]["kernels_ms"].get("k_f12mul_034"))
     say("ladders", unfused_doubling="torch.equal miller_dbl_iter's f", iterations=len(calls),
-        lanes=128, wall_s=f"{wall:.4f}")
+        lanes=128, wall_s=f"{wall:.4f}",
+        unfused_doubling_device_ms=f"{device['unfused']['device_ms']:.4f}",
+        fused_dbl_iter_device_ms=f"{device['fused']['device_ms']:.4f}",
+        kernels_device_ms=json.dumps({k: {n: round(ms, 4) for n, ms in v["kernels_ms"].items()}
+                                      for k, v in device.items()}, separators=(",", ":")))
 
 
 def _ubench(card: str, out: dict) -> dict:

@@ -197,14 +197,6 @@ __device__ __forceinline__ void canon_reduce_body(int* x, Col f40 = c_folds + 40
   norm<W, CANON_FOLD_D, true>(x);
 }
 
-// Out-of-line entries for the one-thread tower kernels: one copy of the
-// product's code (registers inside), operands in the caller's local memory.
-__device__ __noinline__ void fp_mul(int* out, const int* a, const int* b) {
-  mul_body<true, true>(out, a, b);
-}
-
-__device__ __noinline__ void fp_reduce_light(int* x) { reduce_light_body(x); }
-
 // ---------------------------------------------------------- global I/O
 // Element (k, s) of a [K, W, S] batch: limb i at (k*W + i)*S + s.
 __device__ __forceinline__ void load_elem(int* out, const int* __restrict__ g,

@@ -15,7 +15,8 @@ fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
 htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
 tower._f2mul_body, tower._f2sqr_body, jacobian._dbl_f1_body,
 jacobian._add_core_f1, jacobian._add_exact_core_f1, tower._f6mul_body,
-fp._mul_fn): run on symbolic rows,
+fp._mul_fn, tower._f12sqr_body, tower._f12mul_034_body): run on symbolic
+rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -167,14 +168,23 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # 0.00681 / 0.00686 / 0.00961, 4,096 0.01285 / 0.01054 / 0.00969 / 0.00960
 # / 0.00977 / 0.00977, 110,592 0.23720 / 0.18999 / 0.17609 / 0.18166 /
 # 0.21031 / 0.22892: over a verify's mix 8 warps take the least (0.0590
-# ms; 4 warps 0.0592, 1 warp 0.0599).
+# ms; 4 warps 0.0592, 1 warp 0.0599). f12sqr's 3 stages hold 36 products,
+# then 24 and 12 reduce_light: 4 rounds on 32 warps, 6 on 16, 10 on 8;
+# f12mul_034's 2 stages 39 products, then 26 reduce_light: 3 / 5 / 9.
+# Both run only on the unfused Miller doubling, 63 launches each at 128
+# lanes. On 8 / 16 / 32 warps f12sqr takes 0.01433 / 0.01277 / 0.01248 ms
+# at 128 lanes (one lane 0.01322 / 0.01162 / 0.01104, 4,096 lanes 0.21767
+# / 0.23921 / 0.32777): 32; f12mul_034 0.01476 / 0.01310 / 0.01320 at 128
+# lanes (one lane 0.01359 / 0.01169 / 0.01191, 4,096 0.23033 / 0.24961 /
+# 0.34952): 16, also faster at 4,096.
 # Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
             7: ("jac_add_f2", 4), 8: ("g1_win_step", 4), 9: ("ratio_table", 3),
             10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3),
             13: ("f2sqr", 3), 14: ("jac_dbl_f1", 3), 15: ("jac_add_f1", 4),
-            16: ("add_exact_f1", 4), 17: ("f6mul", 32), 18: ("mul", 8)}
+            16: ("add_exact_f1", 4), 17: ("f6mul", 32), 18: ("mul", 8),
+            19: ("f12sqr", 32), 20: ("f12mul_034", 16)}
 # kernels laid out one warp per lane element (NW elements a block at a
 # time, one copy of the tables): PROGRAMS gives their warps a block
 PER_WARP = frozenset({"mul"})
@@ -438,6 +448,10 @@ def program(slot: int) -> np.ndarray:
         # a, b -> a b over Fp6 and over Fp
         "f6mul": (tower._f6mul_body, (FP6, FP6)),
         "mul": (fp._mul_fn, (FP, FP)),
+        # a -> a^2 over Fp12
+        "f12sqr": (tower._f12sqr_body, (FP12,)),
+        # f, c0, c1, c4 -> f (c0 + c1 v + c4 v w)
+        "f12mul_034": (tower._f12mul_034_body, (FP12, FP2, FP2, FP2)),
     }[PROGRAMS[slot][0]]
     return np.ascontiguousarray(encode(*trace(body, fields)))
 

@@ -51,7 +51,7 @@ SOURCES = {
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
 }
-HEADERS = ("fp_lane.cuh", "tower.cuh", "coop.cuh", "canon.cuh")
+HEADERS = ("fp_lane.cuh", "coop.cuh", "canon.cuh")
 
 # component shape of each field's lane element
 FP, FP2, FP6, FP12 = (), (2,), (3, 2), (2, 3, 2)

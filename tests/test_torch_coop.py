@@ -2,7 +2,8 @@
 
 `miller_dbl_iter`, `miller_add_iter`, `cyc_sqr`, `jac_dbl_f1`,
 `jac_add_f1`, `add_exact_f1`, `jac_dbl_f2`, `jac_add_f2`, `g1_win_step`,
-`g2_win_step`, `f2mul`, `f2sqr`, `f6mul`, `f12mul`, the inversion chains
+`g2_win_step`, `f2mul`, `f2sqr`, `f6mul`, `f12mul`, `f12sqr`, the sparse
+line product `f12mul_034`, the inversion chains
 `inv_w4` and `inv_bin`, hash-to-G2's ratio chain (two programs, its table
 and its window) and the standalone `mul` (one job, one warp per lane
 element) run
@@ -45,7 +46,7 @@ from lighthouse_tpu_torch.crypto.bls.params import P
 from lighthouse_tpu_torch.ops.lane import (
     chains, coop, fp, htc, jacobian as J, kernels, pairing, tower,
 )
-from lighthouse_tpu_torch.tools import coop_warps
+from lighthouse_tpu_torch.tools import coop_warps, unfused_ms
 
 CSRC = Path(coop.__file__).resolve().parents[2] / "csrc"
 # chip_smoke.py, for the exact add's planted operands (real points)
@@ -79,6 +80,10 @@ BODIES = {
     "f2sqr": (tower._f2sqr_body, [F2], [3], 2),
     "f12mul": (tower._f12mul_body, [F12, F12], [3, 3], 54),
     "f6mul": (tower._f6mul_body, [F6, F6], [3, 3], 18),
+    # a -> a^2; f, c0, c1, c4 -> f (c0 + c1 v + c4 v w): the unfused
+    # Miller doubling's halves, f at the square's 4-unit output
+    "f12sqr": (tower._f12sqr_body, [F12], [4], 36),
+    "f12mul_034": (tower._f12mul_034_body, [F12, F2, F2, F2], [4, 1, 1, 1], 39),
     # one product: the standalone `mul`, laid out one warp per lane element
     "mul": (fp._mul_fn, [(), ()], [3, 1], 1),
     # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
@@ -94,10 +99,11 @@ SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_
            "jac_dbl_f2": "jac_dbl.cu", "jac_add_f2": "jac_add.cu", "g1_win_step": "chains.cu",
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
            "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
-           "f2mul": "tower.cu", "f2sqr": "tower.cu", "f6mul": "tower.cu", "mul": "fp_mul.cu"}
+           "f2mul": "tower.cu", "f2sqr": "tower.cu", "f6mul": "tower.cu", "mul": "fp_mul.cu",
+           "f12sqr": "tower.cu", "f12mul_034": "tower.cu"}
 # the jobs of each stage, where a kernel's docstring states them
 STAGE_JOBS = {"f2mul": [3, 2], "f2sqr": [2], "f6mul": [18, 12, 6], "f12mul": [54, 36, 18],
-              "mul": [1]}
+              "mul": [1], "f12sqr": [36, 24, 12], "f12mul_034": [39, 26]}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -408,15 +414,18 @@ def test_programs_fit_the_constant_bank():
     assert all(f"c_prog_{name}" in coop.header() for name, _ in coop.PROGRAMS.values())
     # with the ratio chain's table (399 words) and window (68), and its 191
     # digits, miller_add_iter's 978 words, f2mul's 42, f2sqr's 25,
-    # jac_dbl_f1's 73, jac_add_f1's 125, add_exact_f1's 194, f6mul's 269
-    # and mul's 15: 12,149 words of nineteen programs, 14,035 of the bank's
-    # words with the digits and the tables, 2,349 left
-    assert (words, digits, coop.TABLES) == (11473 + 198 + 194 + 269 + 15, 191, 1695)
-    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 2349
+    # jac_dbl_f1's 73, jac_add_f1's 125, add_exact_f1's 194, f6mul's 269,
+    # mul's 15, f12sqr's 618 and f12mul_034's 514: 13,281 words of
+    # twenty-one programs, 15,167 of the bank's words with the digits and
+    # the tables, 1,217 left
+    assert (words, digits, coop.TABLES) == (11473 + 198 + 194 + 269 + 15 + 618 + 514, 191,
+                                            1695)
+    assert words == 13281 and words + digits + coop.TABLES == 15167
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 1217
     src = (CSRC / "jac_add.cu").read_text()
     assert "static __device__ int g_canon[CANON_WORDS];" in src and "__constant__" not in src
     fake = dict(coop.PROGRAMS)
-    fake[19], fake[20] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[21], fake[22] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -446,8 +455,9 @@ def test_header_mirrors_python():
     # the rows the kernels load and store (f, XT, YT, ZT, xP, yP -> f, X3,
     # Y3, Z3; the same with xQ, yQ; f -> f; X, Y, Z -> X3, Y3, Z3 and P1,
     # P2 -> P1 + P2 over G1 and G2; acc, E -> [4]acc, [4]acc + E over G1
-    # and G2; a, b -> a b over Fp, Fp2, Fp6 and Fp12; a -> a^2 over Fp2;
-    # a, 1 -> a^(p-2); w, 1 -> 16 entries; acc, E -> acc^4 E), as the
+    # and G2; a, b -> a b over Fp, Fp2, Fp6 and Fp12; a -> a^2 over Fp2
+    # and Fp12; f, c0, c1, c4 -> f (c0 + c1 v + c4 v w); a, 1 -> a^(p-2);
+    # w, 1 -> 16 entries; acc, E -> acc^4 E), as the
     # sources' static_asserts check them
     for name, n_in, n_out in (("miller_dbl_iter", 20, 18), ("miller_add_iter", 24, 18),
                               ("f2mul", 4, 2), ("f2sqr", 2, 2), ("cyc_sqr", 12, 12),
@@ -456,6 +466,7 @@ def test_header_mirrors_python():
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
                               ("f12mul", 24, 12), ("f6mul", 12, 6), ("mul", 2, 1),
+                              ("f12sqr", 12, 12), ("f12mul_034", 18, 12),
                               ("inv_w4", 2, 1), ("inv_bin", 2, 1),
                               ("ratio_table", 4, 32), ("ratio_win", 4, 2)):
         w = coop.program(coop.slot(name))
@@ -553,3 +564,19 @@ def test_warps_tool_compares_one_output_and_several():
     assert coop_warps.equal_outputs([a.clone(), b.clone()], (a, b))
     assert not coop_warps.equal_outputs([a.clone(), a.clone()], (a, b))
     assert not coop_warps.equal_outputs([a.clone()], (a, b))
+
+
+def test_unfused_tool_holds_each_doubling(monkeypatch):
+    """tools/unfused_ms.py's doublings on CPU tensors (the plain bodies):
+    chained miller_dbl_iter from seeded operands, and each unfused
+    f12mul_034(f12sqr(f), c0, c1, c4) torch.equal to its f; a changed limb
+    of the line product raises."""
+    monkeypatch.setattr(unfused_ms, "NDBL", 2)
+    fused, unfused = unfused_ms.doubling_runs(2, device="cpu")
+    got, want = unfused(), fused()
+    assert len(got) == len(want) == 2
+    assert all(torch.equal(g, w[0]) for g, w in zip(got, want, strict=True))
+    m034 = tower.f12mul_034
+    monkeypatch.setattr(tower, "f12mul_034", lambda *a: m034(*a) + 1)
+    with pytest.raises(AssertionError, match="unfused doubling"):
+        unfused_ms.doubling_runs(2, device="cpu")
