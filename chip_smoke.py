@@ -55,10 +55,14 @@ non-zero before the last line:
    device ms at S = 1, 2 and 1024, beside their bound and, at S = 1, the
    latency floor of their serial stages; canonical (canon_reduce, the
    ripples and the subtract ladder in one launch) on seeded differences
-   of products at those widths and at S = 1, 2 and 1024, and on its edge
-   operands (0, p, -p, p - 1, 2p, the two ends of the ladder's window),
-   timed at S = 4096 and in device ms and bound at S = 1, 2 and 1024,
-   with the latency floor of its ripples at S = 1; then every kernel of
+   of products at those widths and at S = 1, 2, 1024 and the verify's
+   stacks 2 x 1, 2 x 1,024 and 8 x 2,048 (CANON_S), on its edge operands
+   (0, p, -p, p - 1, 2p, the two ends of the ladder's window) and on its
+   long chains (offset values p * 2^k - 1, p * 2^k, p * 2^k + 1 for k =
+   0 .. 6; limbs all MASK and all -MASK), timed at S = 4096 and in device
+   ms and bound at CANON_S, with the latency floor of its chain at S = 1;
+   reduce_light on seeded lazy sums at 2 x 2,048, 6 x 1 and 4,097 (RL_S),
+   in device ms and bound there, with its floor; then every kernel of
    the pairing check (mul, canonical, reduce_light, f2mul, f2sqr, f6mul,
    f12mul, miller_dbl_iter, miller_add_iter, cyc_sqr, inv_bin) against
    theirs on operands recorded from a real Miller loop, final
@@ -149,8 +153,9 @@ non-zero before the last line:
    phase 7's; row 23 of the TPU-kernel table is two entries,
    ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
-   kernels' dynamic shared memory, as each library reports it; their and
-   canonical's device ms and bound at S = 1, 2 and 1024, f2mul's and
+   kernels' dynamic shared memory, as each library reports it; the
+   cooperative kernels' device ms and bound at S = 1, 2 and 1024,
+   canonical's at CANON_S and reduce_light's at RL_S, f2mul's and
    f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, the
    ladder steps' also with every bit set, and the latency floor at S = 1;
    the ladder steps' device ms over phase 7's 64 launches);
@@ -260,12 +265,23 @@ CHAIN_S = (1, 2, 1024)
 # at RATIO_S: a verify runs it at twice the bucket's width (both draws)
 RATIO_S = (1, 2, 256, 2048, 4096)
 # canonical, held on seeded differences of products at SHAPES and CANON_S
-# and on its edge operands, and timed at S=4096 and CANON_S
-CANON_S = (1, 2, 1024)
-# its latency floor at one lane element: canon_reduce's 8 dependent
-# operations, then 8 ripples of 37 dependent add-and-shift pairs (each
-# ladder round waits for the last round's borrow), at 4 cycles each
+# and on its edge and long-chain operands, and timed at S=4096 and CANON_S:
+# its widths in a bucket-1024 verify are 1 to 2 x 2,048 lanes (the lane
+# sum's 2 x 1 .. 2 x 512, the G2 exact adds' 2 x 1,024, hash-to-G2's 8 x
+# 2,048 and 2 x 2,048, final_exp's 12 x 1)
+CANON_S = (1, 2, 1024, (2, 1), (2, 1024), (8, 2048))
+# reduce_light, held on seeded lazy sums at RL_S beside its recorded holds
+# and timed there: hash-to-G2's map runs it at 2 x 2,048, the final
+# exponentiation's Fp12 inversion at 6 x 1; 4,097 lanes a ragged block
+RL_S = ((2, 2048), (6, 1), 4097)
+# the dependent chains of one lane element's thread, at 4 cycles an
+# operation. canonical (and add_exact_f1's zero tests of H and R):
+# canon_reduce's 8 dependent operations, then 8 ripples of 37 dependent
+# add-and-shift pairs (each ladder round waits for the last round's
+# borrow). reduce_light: two folds, each a multiply-add on the last one's
+# limb 35, then its carry pass, the top limb's shift and a multiply-add.
 CANON_CHAIN_OPS = 8 + 8 * 37 * 2
+RL_CHAIN_OPS = 2 + 2
 # every kernel of the pairing check, held on operands recorded from a real
 # one (canon_reduce on canonical's)
 RECORDED = ("mul", "canonical", "canon_reduce", *_PAIRING)
@@ -671,7 +687,7 @@ def _inputs(rng, shape, kind, combos=None):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
     if kind == "mul":
         return [t(lazy3()), t(canon())]
-    if kind == "sqr":
+    if kind in ("sqr", "reduce_light"):  # reduce_light: hash-to-G2's lazy sums
         return [t(lazy3())]
     if kind in ("canon_reduce", "canonical"):  # eq_zero's operand: a difference of products
         return [t(canon() - canon())]
@@ -898,30 +914,97 @@ def _canonical_edges():
     return np.stack(cols, axis=1)
 
 
+def _canonical_chains():
+    """canonical()'s long-chain operands [36, 23], one a lane: for k = 0
+    .. 6, three lanes whose ladder offset value v + KP (v: canon_reduce's
+    output) is p * 2^k - 1, p * 2^k and p * 2^k + 1, where round k's
+    difference has every limb 0 but the lowest, so its borrow (or none)
+    runs through all 37 limbs; then a lane of limbs all MASK and one all
+    -MASK. A chain lane is u with limb 35 = 0, which canon_reduce's first
+    two folds leave as it is; its two open passes carry a = u34 >> B and
+    then b into limb 35, and the folds take off (a + b)(2^385 - F), F =
+    2^385 mod p (FOLDS column 40). So u's value is the target less KP
+    plus n (2^385 - F), for the n with a + b = n: limbs 0-32 the digits,
+    33 and 34 the rest (tests/test_torch_fp.py checks every offset)."""
+    from lighthouse_tpu_torch.crypto.bls.params import P
+    from lighthouse_tpu_torch.ops import fp as base
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    B, MASK = fp.B, fp.MASK
+    f40 = [int(v) for v in fp.FOLDS_NP[:, 40]]
+    off = (1 << 385) - sum(v << (B * i) for i, v in enumerate(f40))
+
+    def lane(target):
+        for n in sorted(range(-6000, 6000), key=abs):
+            value = target - base._KP + n * off
+            u34 = value >> 374
+            u33 = (value >> 363) & MASK
+            if (u34 >> B) + (((u34 & MASK) + f40[34] * (u34 >> B)) >> B) == n:
+                col = np.zeros(36, np.int32)
+                col[:33] = [(value >> (B * i)) & MASK for i in range(33)]
+                col[33], col[34] = u33, u34
+                return col
+        raise ValueError(f"no operand lands on {target}")
+
+    cols = [lane((P << k) + d) for k in range(7) for d in (-1, 0, 1)]
+    cols += [np.full(36, MASK, np.int32), np.full(36, -MASK, np.int32)]
+    return np.stack(cols, axis=1)
+
+
+def _shape(width) -> tuple:
+    """A width of CANON_S or RL_S as an operand shape: S -> [36, S], a
+    stack (K, S) -> [K, 36, S]."""
+    return (width[0], 36, width[1]) if isinstance(width, tuple) else (36, width)
+
+
+def _width_label(width) -> str:
+    return _label(width) if isinstance(width, tuple) else f"S={width}"
+
+
 def _canonical_holds(rng, out: dict) -> None:
     """canonical against its plain body on seeded differences of products
-    at SHAPES and CANON_S and on its edge operands (whose limbs must be
-    their values mod p), timed at S=4096 and in device ms and bound at
-    CANON_S, with the latency floor of its ripples."""
+    at SHAPES and CANON_S and on its edge and long-chain operands (whose
+    limbs must be their values mod p), timed at S=4096 and in device ms
+    and bound at CANON_S, with the latency floor of its chain."""
     from lighthouse_tpu_torch.ops.lane import fp
 
     name = "canonical"
     max_err = 0
-    for shape in SHAPES + [(36, S) for S in CANON_S]:
+    for shape in SHAPES + [_shape(w) for w in CANON_S]:
         args = _inputs(rng, shape, name)
         max_err = max(max_err, _hold(name, args, str(shape)))
         if shape == SHAPES[0]:
             timing, main = _time(name, args), args
-    edges = torch.from_numpy(_canonical_edges()).to(DEVICE)
-    max_err = max(max_err, _hold(name, [edges], "edges"))
-    got = fp.canonical(edges)
-    if not torch.equal(got.cpu(), torch.from_numpy(fp.pack(fp.unpack(edges)))):
-        raise AssertionError("canonical on the edge operands: limbs are not the values mod p")
+    for label, cols in (("edges", _canonical_edges()), ("chains", _canonical_chains())):
+        x = torch.from_numpy(cols).to(DEVICE)
+        max_err = max(max_err, _hold(name, [x], label))
+        if not torch.equal(fp.canonical(x).cpu(), torch.from_numpy(fp.pack(fp.unpack(x)))):
+            raise AssertionError(f"canonical on the {label}: limbs are not the values mod p")
     timing.update(_widths_ms(name, main, CANON_S))
     out[name] = dict(max_abs_err=max_err, **timing)
     say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
-        shapes="S=4096,2x128,S=4097,S=1,S=2,S=1024,edges",
-        operands="seeded(differences of products); edges(0,p,-p,p-1,2p,window ends)",
+        shapes="S=4096,2x128,S=4097," + ",".join(map(_width_label, CANON_S)) + ",edges,chains",
+        operands="seeded(differences of products); edges(0,p,-p,p-1,2p,window ends); "
+                 "chains(offset p*2^k-1,p*2^k,p*2^k+1 for k=0..6; limbs all MASK, all -MASK)",
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
+
+
+def _reduce_light_holds(rng, out: dict) -> None:
+    """reduce_light against its plain body on seeded lazy sums at RL_S, in
+    device ms and bound there with the latency floor of its chain (its
+    recorded holds and its time at S=4096 come with the pairing kernels')."""
+    name = "reduce_light"
+    max_err = 0
+    for w in RL_S:
+        args = _inputs(rng, _shape(w), name)
+        max_err = max(max_err, _hold(name, args, str(_shape(w))))
+        if w == RL_S[-1]:
+            main = args
+    timing = _widths_ms(name, main, RL_S)
+    out[name] = dict(max_abs_err=max_err, **timing)
+    say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
+        shapes=",".join(map(_width_label, RL_S)),
+        operands="seeded(sums of three standard elements)",
         **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in timing.items()})
 
 
@@ -1135,12 +1218,13 @@ def _widths_ms(name: str, main, widths=REDESIGNED_S) -> dict:
     and the latency floor at one lane element at the maximum SM clock: a
     cooperative kernel's programs' stages one after another, each at
     least one product's chain of dependent multiply-adds
-    (JOB_CHAIN_CYCLES); canonical's chain of CANON_CHAIN_OPS dependent
-    operations at 4 cycles each."""
+    (JOB_CHAIN_CYCLES); canonical's and reduce_light's chains of
+    CANON_CHAIN_OPS and RL_CHAIN_OPS dependent operations at 4 cycles
+    each."""
     from lighthouse_tpu_torch.ops.lane import coop
 
-    if name == "canonical":
-        cycles = CANON_CHAIN_OPS * 4
+    if name in ("canonical", "reduce_light"):
+        cycles = {"canonical": CANON_CHAIN_OPS, "reduce_light": RL_CHAIN_OPS}[name] * 4
     else:
         cycles = coop.kernel_stats(name)["stages"] * JOB_CHAIN_CYCLES
         if name == "add_exact_f1":  # then its zero tests, canonical()'s chain
@@ -1203,6 +1287,7 @@ def phase_kernels() -> dict:
     _slice4_holds(rng, out)
     _chain_holds(rng, out)
     _canonical_holds(rng, out)
+    _reduce_light_holds(rng, out)
 
     # the pairing kernels, on operands recorded from a real run
     free0, _ = torch.cuda.mem_get_info()

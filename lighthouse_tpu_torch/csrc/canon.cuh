@@ -6,15 +6,15 @@
 // `canon_reduce_body` (fp_lane.cuh), the pad to 37 limbs, + KP and an
 // exact carry ripple (`_ripple_carry`), then the reduction by p * 2^k for
 // k = 6 .. 0. Each caller passes the tables: KP [37], PK_LADDER [7, 37]
-// (row k: p * 2^k) and FOLDS column 40, from its own constant bank
-// (`canonical`) or its block's shared memory (`add_exact_f1`).
+// (row k: p * 2^k) and FOLDS column 40, from its block's shared memory
+// (`canonical` the column packed, `add_exact_f1` within all of FOLDS).
 //
 // The ladder comes in two forms, one a caller, with the same limbs out:
 //
 // - `Ladder::kRestoring` (`canonical`), the plain body's own: each round
 //   ripples v - p * 2^k beside v and keeps it where the borrow out of its
-//   top limb is >= 0; 8 ripples, unrolled, the rows as constant operands.
-//   It holds 74 limbs in registers, which a thread of `canonical` has.
+//   top limb is >= 0; 8 ripples, unrolled. It holds 74 limbs in
+//   registers, which a thread of `canonical` has.
 // - `Ladder::kSigned` (`add_exact_f1`), non-restoring, in place: a round
 //   subtracts p * 2^k where the value is >= 0 and adds it where it is <
 //   0, the sign read off that round's carry out; a last round adds p
@@ -34,9 +34,6 @@
 
 namespace lh {
 
-constexpr int W37 = W + 1;
-constexpr int LADDER_ROUNDS = 7;  // fp._LADDER_ROUNDS: values < p * 2^7
-
 enum class Ladder { kRestoring, kSigned };
 
 // `_ripple_carry` in place: s = limb + carry, carry = s >> B, limb = s &
@@ -54,18 +51,18 @@ __device__ __forceinline__ int ripple(int* v) {
 
 // canonical() in place: v[0 .. W) the lazy input, v[W] scratch; on return
 // v[0 .. W) the canonical limbs (and v[W] 0). `kp` KP [37], `ladder`
-// PK_LADDER [7, 37], `f40` FOLDS column 40 (f40[i * NFOLD]); in the
-// constant bank, or volatile pointers into shared memory, which read each
-// entry where it is used (a cached copy of the folds' 36 entries would
-// sit in registers beside the 37 limbs).
+// PK_LADDER [7, 37], `f40` FOLDS column 40 (f40[i * F40_STRIDE]); volatile
+// pointers into shared memory, which read each entry where it is used (a
+// cached copy of the folds' 36 entries would sit in registers beside the
+// 37 limbs).
 //
 // kSigned, the limbs as the value: L = T mod 2^(37 B) for the signed
 // value T. A subtract from T >= 0 carries -1 out exactly where T - p *
 // 2^k < 0; an add to T < 0 (L = T + 2^(37 B)) carries +1 out exactly
 // where T + p * 2^k >= 0: after the round T < 0 where carry - neg < 0.
-template <Ladder L, class Tab>
+template <Ladder L, int F40_STRIDE = NFOLD, class Tab>
 __device__ __forceinline__ void canonical_body(int* v, Tab kp, Tab ladder, Tab f40) {
-  canon_reduce_body(v, f40);
+  canon_reduce_body<F40_STRIDE>(v, f40);
   v[W] = 0;
 #pragma unroll
   for (int i = 0; i < W37; ++i) v[i] += kp[i];

@@ -23,22 +23,19 @@
 // (10 int32 operations per byte). canonical's own floor is latency: each
 // ripple is a chain of 37 dependent add-and-shift pairs, and each ladder
 // round's ripple waits for the last round's select, so 8 x 37 x 2
-// dependent operations a thread, after canon_reduce's 8. Design: one
-// thread per lane element, limbs in registers, the fold row, the
-// topfold vector, KP and the ladder in constant memory (every thread of a
-// warp reads the same entry at once), coalesced loads and stores.
+// dependent operations a thread, after canon_reduce's 8.
 //
-// The ripples and the ladder are csrc/canon.cuh's `canonical_body` in
-// its restoring form (the plain body's); csrc/jac_add.cu's `add_exact_f1`
-// runs its signed form, on its own copy of the tables.
+// Design: one thread per lane element, limbs in registers, the ripples
+// and the ladder csrc/canon.cuh's `canonical_body` in its restoring form
+// (the plain body's; csrc/jac_add.cu's `add_exact_f1` runs its signed
+// form). `canonical` reads KP, the ladder and FOLDS column 40 from its
+// block's copy in shared memory (fp_lane.cuh `block_tables`), not the
+// constant bank, where a miss on the chain stalls the warp at issue.
+// `canon_reduce` and `norm3` keep their tables in constant memory; no path
+// launches them.
 #include "canon.cuh"
 
 namespace {
-
-// KP [37] and PK_LADDER [7, 37] (row k: p * 2^k), row-major int32, from
-// ops/lane/fp.py through lh_fp_canon_init
-static __constant__ __align__(16) int c_kp37[lh::W37];
-static __constant__ __align__(16) int c_pk_ladder[lh::LADDER_ROUNDS * lh::W37];
 
 __global__ void __launch_bounds__(lh::THREADS)
     k_canon_reduce(const int* __restrict__ x, int* __restrict__ out, int K,
@@ -54,11 +51,13 @@ __global__ void __launch_bounds__(lh::THREADS)
 __global__ void __launch_bounds__(lh::THREADS)
     k_canonical(const int* __restrict__ x, int* __restrict__ out, int K,
                 int S) {
+  const volatile int* tab = lh::block_tables<lh::T_KP, lh::T_TF>();
   long base;
   if (!lh::elem_index(K, S, &base)) return;
   int v[lh::W37];
   lh::load_elem(v, x, base, S);
-  lh::canonical_body<lh::Ladder::kRestoring, const int*>(v, c_kp37, c_pk_ladder, lh::c_folds + 40);
+  lh::canonical_body<lh::Ladder::kRestoring, 1>(v, tab + lh::T_KP, tab + lh::T_LADDER,
+                                                tab + lh::T_F40);
   lh::store_elem(out, v, base, S);
 }
 
@@ -77,8 +76,7 @@ __global__ void __launch_bounds__(lh::THREADS)
 LH_EXPORT int lh_fp_canon_init(const void* folds, const void* topfm,
                                const void* kp37, const void* pk_ladder) {
   int e = lh::copy_consts(folds, topfm);
-  if (!e) e = (int)cudaMemcpyToSymbol(c_kp37, kp37, sizeof(c_kp37));
-  if (!e) e = (int)cudaMemcpyToSymbol(c_pk_ladder, pk_ladder, sizeof(c_pk_ladder));
+  if (!e) e = lh::copy_short_tables(folds, topfm, kp37, pk_ladder);
   return e;
 }
 

@@ -26,6 +26,9 @@ constexpr int MASK = (1 << B) - 1;
 constexpr int CONVW = 2 * W + 1;  // 73
 constexpr int FOLD_AT = 35;
 constexpr int NFOLD = 41;         // FOLDS columns: [full 38 | 2 | 1]
+// canonical()'s width: 36 limbs padded by one for the ripples
+constexpr int W37 = W + 1;
+constexpr int LADDER_ROUNDS = 7;  // fp._LADDER_ROUNDS: values < p * 2^7
 
 // Carry-pass depths, copied from `_SCHED` (ops/lane/fp.py).
 constexpr int MUL_ENTRY_A = 2;
@@ -60,10 +63,10 @@ __host__ __device__ constexpr int trow(int n) {
   return n == CONVW ? 0 : (n == 37 ? 1 : 2);
 }
 
-// One carry pass (`_norm1`): out[i] = lo[i] + hi[i-1] + hi[top] * topf[i].
-template <int N>
-__device__ __forceinline__ void norm1(int* x) {
-  const int* tf = c_topfm + trow(N) * CONVW;
+// One carry pass (`_norm1`): out[i] = lo[i] + hi[i-1] + hi[top] * topf[i],
+// topf TOPFM's row for N limbs (default: the constant bank's).
+template <int N, class Tab = const int*>
+__device__ __forceinline__ void norm1(int* x, Tab tf = c_topfm + trow(N) * CONVW) {
   const int top = x[N - 1] >> B;
   int carry = 0;
 #pragma unroll
@@ -163,38 +166,94 @@ __device__ __forceinline__ void sqr_body(int* out, const int* a_in) {
   mul_body<false, false>(out, a, a);
 }
 
-// `_reduce_light_body`, in place.
-__device__ __forceinline__ void reduce_light_body(int* x) {
-  int t[W];
-  norm<W, RL_ENTRY>(x);
-  fold<W, 40>(x, t);
-  norm<W, RL_FOLD_A>(t);
-  fold<W, 40>(t, x);
-  norm<W, RL_FOLD_B>(x);
-}
-
-// `fold<W, 40>` through a FOLDS column read at col[i * NFOLD].
-template <class Col>
+// `fold<W, 40>` through a FOLDS column read at col[i * STRIDE]: NFOLD in
+// the whole FOLDS table, 1 where the column is packed.
+template <int STRIDE, class Col>
 __device__ __forceinline__ void fold_col(const int* x, int* out, Col col) {
 #pragma unroll
-  for (int i = 0; i < W; ++i) out[i] = (i < FOLD_AT ? x[i] : 0) + col[i * NFOLD] * x[FOLD_AT];
+  for (int i = 0; i < W; ++i) out[i] = (i < FOLD_AT ? x[i] : 0) + col[i * STRIDE] * x[FOLD_AT];
 }
 
 // `_canon_reduce_body`, in place: open passes and four single-row folds
-// through FOLDS column 40, at `f40` (default: the constant bank's; a
-// cooperative kernel passes its block's copy in shared memory).
-template <class Col = const int*>
+// through FOLDS column 40, at `f40` with its entries STRIDE words apart
+// (default: the constant bank's; a cooperative kernel passes its block's
+// copy of FOLDS in shared memory, `canonical` its packed column).
+template <int STRIDE = NFOLD, class Col = const int*>
 __device__ __forceinline__ void canon_reduce_body(int* x, Col f40 = c_folds + 40) {
   int t[W];
   norm<W, CANON_ENTRY, true>(x);
-  fold_col(x, t, f40);
+  fold_col<STRIDE>(x, t, f40);
   norm<W, CANON_FOLD_A, true>(t);
-  fold_col(t, x, f40);
+  fold_col<STRIDE>(t, x, f40);
   norm<W, CANON_FOLD_B, true>(x);
-  fold_col(x, t, f40);
+  fold_col<STRIDE>(x, t, f40);
   norm<W, CANON_FOLD_C, true>(t);
-  fold_col(t, x, f40);
+  fold_col<STRIDE>(t, x, f40);
   norm<W, CANON_FOLD_D, true>(x);
+}
+
+// ------------------------------------ tables in the block's shared memory
+// `canonical` and `reduce_light`, one thread per lane element, read the
+// table entries on their chains from the block's copy in shared memory,
+// not the constant bank: an instruction whose constant operand misses
+// stalls the warp at issue, and FOLDS column 40's entries lie 41 words
+// apart, each on its own line of the bank. The copy is read volatile,
+// each entry where it is used (a cached copy would sit in registers beside
+// the limbs).
+//
+// In global memory, int32: KP [37] | PK_LADDER [7, 37] | FOLDS column 40
+// [36] | TOPFM's row for 36 limbs [36], padded to whole int4s.
+constexpr int T_KP = 0;
+constexpr int T_LADDER = W37;
+constexpr int T_F40 = T_LADDER + LADDER_ROUNDS * W37;
+constexpr int T_TF = T_F40 + W;
+constexpr int T_WORDS = (T_TF + W + 3) / 4 * 4;
+static_assert(T_F40 % 4 == 0 && T_TF % 4 == 0, "the copies start and end at whole int4s");
+static __device__ __align__(16) int g_short[T_WORDS];
+
+// g_short from the host tables (FOLDS [W, 41], TOPFM [3, CONVW], KP [37],
+// PK_LADDER [7, 37]; the last two may be null: their words stay 0).
+static inline int copy_short_tables(const void* folds, const void* topfm, const void* kp37,
+                                    const void* pk_ladder) {
+  int tab[T_WORDS] = {};
+  for (int i = 0; i < W37 && kp37; ++i) tab[T_KP + i] = ((const int*)kp37)[i];
+  for (int i = 0; i < LADDER_ROUNDS * W37 && pk_ladder; ++i) {
+    tab[T_LADDER + i] = ((const int*)pk_ladder)[i];
+  }
+  for (int i = 0; i < W; ++i) {
+    tab[T_F40 + i] = ((const int*)folds)[i * NFOLD + 40];
+    tab[T_TF + i] = ((const int*)topfm)[trow(W) * CONVW + i];
+  }
+  return (int)cudaMemcpyToSymbol(g_short, tab, sizeof(tab));
+}
+
+// Words [FROM, TO) of g_short into the block's copy, an int4 a thread
+// at a time: all threads of the block, one barrier. Word FROM + i is the
+// copy's word i.
+template <int FROM, int TO>
+__device__ __forceinline__ const volatile int* block_tables() {
+  static_assert(FROM % 4 == 0 && TO % 4 == 0 && FROM < TO, "whole int4s");
+  __shared__ __align__(16) int tab[TO - FROM];
+  for (int t = threadIdx.x; t < (TO - FROM) / 4; t += blockDim.x) {
+    reinterpret_cast<int4*>(tab)[t] = reinterpret_cast<const int4*>(g_short + FROM)[t];
+  }
+  __syncthreads();
+  return tab;
+}
+
+// `_reduce_light_body` in place: FOLDS column 40 packed at `f40`, TOPFM's
+// row for W limbs at `tf` (the block's copy).
+__device__ __forceinline__ void reduce_light_body(int* x, const volatile int* f40,
+                                                  const volatile int* tf) {
+  int t[W];
+#pragma unroll
+  for (int p = 0; p < RL_ENTRY; ++p) norm1<W>(x, tf);
+  fold_col<1>(x, t, f40);
+#pragma unroll
+  for (int p = 0; p < RL_FOLD_A; ++p) norm1<W>(t, tf);
+  fold_col<1>(t, x, f40);
+#pragma unroll
+  for (int p = 0; p < RL_FOLD_B; ++p) norm1<W>(x, tf);
 }
 
 // ---------------------------------------------------------- global I/O

@@ -15,7 +15,8 @@
 // out; f12sqr 36 products against 2 x 1,728 bytes, f12mul_034 39 against
 // 1,728 + 3 x 288 + 1,728; f2mul and f6mul the same ratio at 3 and 18
 // products. reduce_light (two single-row folds, ~300 operations on 288
-// bytes) is bound by bytes.
+// bytes) is bound by bytes, and at a verify's widths (2 x 2,048 and 6 x
+// 1 lane elements) by launch latency.
 //
 // Every kernel here but `reduce_light` is cooperative (coop.cuh): a block
 // of NW warps per lane element (F12MUL_WARPS, F6MUL_WARPS, F2MUL_WARPS,
@@ -45,9 +46,10 @@
 // (f12mul_034(f12sqr(f), ...), 63 launches each at 128 lanes in
 // chip_smoke.py's phase 7).
 //
-// `reduce_light` keeps one thread per lane element (fp_lane.cuh
-// `reduce_light_body`, its limbs in registers): no one-thread Fp2, Fp6 or
-// Fp12 code is left.
+// `reduce_light` keeps one thread per lane element, its limbs in
+// registers (fp_lane.cuh `reduce_light_body`), FOLDS column 40 and TOPFM's
+// row read from the block's copy in shared memory, not the constant bank.
+// No one-thread Fp2, Fp6 or Fp12 code is left here.
 #include "coop.cuh"
 #include "coop_programs.h"
 #include "fp_lane.cuh"
@@ -58,11 +60,12 @@ using lh::W;
 
 __global__ void __launch_bounds__(lh::THREADS)
     k_reduce_light(const int* __restrict__ a, int* __restrict__ out, int K, int S) {
+  const volatile int* tab = lh::block_tables<lh::T_F40, lh::T_WORDS>();
   long base;
   if (!lh::elem_index(K, S, &base)) return;
   int x[W];
   lh::load_elem(x, a, base, S);
-  lh::reduce_light_body(x);
+  lh::reduce_light_body(x, tab, tab + (lh::T_TF - lh::T_F40));
   lh::store_elem(out, x, base, S);
 }
 
@@ -219,6 +222,7 @@ __global__ void __launch_bounds__(F12MUL_034_NW * 32, lh::coop::min_blocks(F12MU
 LH_EXPORT int lh_tower_init(const void* folds, const void* topfm) {
   int e = lh::copy_consts(folds, topfm);
   if (!e) e = lh::coop::copy_tables(folds, topfm);
+  if (!e) e = lh::copy_short_tables(folds, topfm, nullptr, nullptr);
   if (!e) {
     e = (int)cudaFuncSetAttribute(k_f12mul, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   F12MUL_SMEM);

@@ -381,7 +381,8 @@ def _canonical_fn(folds, topf, x):
 
 
 # one launch per call: canon_reduce, the 8 ripples and the ladder in
-# registers, one thread per lane element
+# registers, one thread per lane element, the tables in the block's shared
+# memory
 canonical_op = KernelOp(_canonical_fn, "canonical", "lh_fp_canonical")
 
 

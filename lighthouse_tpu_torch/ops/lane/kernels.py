@@ -101,9 +101,10 @@ ENTRIES = {
 
 # the tables a library's lh_<lib>_init takes after FOLDS and TOPFM, by their
 # names in ops/lane/fp.py: canonical()'s offset KP [37] and subtract ladder
-# p * 2^k [7, 37] (csrc/canon.cuh), for `canonical` (its constant bank)
-# and for add_exact_f1's zero tests (global memory, copied into each
-# block's shared memory)
+# p * 2^k [7, 37], in global memory, for `canonical` (csrc/fp_lane.cuh
+# `g_short`, copied into each block's shared memory)
+# and for add_exact_f1's zero tests (copied into each block's shared
+# memory)
 INIT_TABLES = {"fp_canon": ("KP_37", "PK_LADDER"), "jac_add": ("KP_37", "PK_LADDER")}
 
 NVCC_FLAGS = [

@@ -170,3 +170,22 @@ def test_ladder_operands_and_bound_follow_the_bits(monkeypatch):
         assert smoke._work_ops(name, ones) == c[name] + c[add]
         assert smoke._work_ops(name, args) == c[name] + c[add] * float(args[6].double().mean())
         assert c[name] == c[dbl] + 3 * 36 * nc
+
+
+def test_canonical_and_reduce_light_held_at_their_verify_widths():
+    """canonical is held and timed at one lane and at the stacks a
+    bucket-1024 verify gives it (2 x 1, 2 x 1,024, 8 x 2,048), reduce_light
+    at 2 x 2,048, 6 x 1 and 4,097 lanes, whose last block is ragged.
+    canonical is also held on its edges and on the long chains: 21 lanes
+    whose offset values land on p * 2^k - 1, p * 2^k and p * 2^k + 1 for k
+    = 0 .. 6, then limbs all MASK and all -MASK."""
+    import numpy as np
+
+    assert smoke.CANON_S == (1, 2, 1024, (2, 1), (2, 1024), (8, 2048))
+    assert smoke.RL_S == ((2, 2048), (6, 1), 4097)
+    assert smoke._shape((8, 2048)) == (8, 36, 2048) and smoke._shape(4097) == (36, 4097)
+    assert smoke._canonical_edges().shape == (36, 7)
+    chains = smoke._canonical_chains()
+    assert chains.shape == (36, 23) and chains.dtype == np.int32
+    assert (chains[35, :21] == 0).all()
+    assert (chains[:, 21] == 2047).all() and (chains[:, 22] == -2047).all()

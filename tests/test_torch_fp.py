@@ -8,6 +8,7 @@ tests do (off-TPU its kernel_op calls the body directly); the port runs
 its plain PyTorch bodies, which a CPU tensor selects.
 """
 
+import functools
 import importlib.util
 import random
 import re
@@ -29,9 +30,10 @@ from lighthouse_tpu_torch.ops.lane import fp as port
 CUH = Path(port.__file__).resolve().parents[2] / "csrc" / "fp_lane.cuh"
 
 
+@functools.cache
 def _smoke():
-    """chip_smoke.py, loaded from its file (it holds canonical()'s edge
-    operands, which it runs on the card)."""
+    """chip_smoke.py, loaded from its file once (it holds canonical()'s
+    edge and long-chain operands, which it runs on the card)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -151,26 +153,49 @@ def test_canonical_and_eq_zero_match_python_ints():
     assert port.eq(a, a).all() and not port.eq(a[:, :7], b[:, :7]).any()
 
 
-@pytest.mark.parametrize("case", ["products-36x8", "products-2x36x4", "edges"])
+def _canonical_operands(case):
+    """canonical()'s held operands: seeded differences of products, the
+    edges at both ends of the ladder's window, the long-chain lanes (offset
+    value p * 2^k - 1, p * 2^k, p * 2^k + 1 for k = 0 .. 6) and the two
+    lanes of limbs all MASK and all -MASK (chip_smoke.py builds the last
+    three sets and holds the kernel on them)."""
+    if case == "edges":
+        return torch.from_numpy(_smoke()._canonical_edges())
+    if case in ("chains", "all-mask"):
+        cols = _smoke()._canonical_chains()
+        return torch.from_numpy(cols[:, :21] if case == "chains" else cols[:, 21:])
+    shape = (36, 8) if case == "products-36x8" else (2, 36, 4)
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    a, b, d, e = (torch.from_numpy(lazy(rng, shape)) for _ in range(4))
+    return port.mul(a, b) - port.mul(d, e)
+
+
+def _offsets(x) -> list:
+    """The ladder's offset value v + KP of each lane (exact ints), v
+    canon_reduce's output."""
+    c = port.consts("cpu")
+    v = port._canon_reduce_body(x, c["folds"], c["topf"])
+    return [port_base._KP + sum(int(l) << (port.B * i) for i, l in enumerate(v[:, s]))
+            for s in range(x.shape[-1])]
+
+
+@pytest.mark.parametrize("case", ["products-36x8", "products-2x36x4", "edges", "chains",
+                                  "all-mask"])
 def test_canonical_plain_body_equals_reference(case):
     """The `canonical` kernel's plain body (canon_reduce, + KP and a
     ripple, the 7-round subtract ladder) against the reference's
     `canonical` limb for limb (exact), on seeded differences of products
-    (the exact add's eq_zero operands) and on the edge operands; the
-    limbs are the values mod p."""
-    c = port.consts("cpu")
+    (the exact add's eq_zero operands), on the edge operands (whose last
+    two lanes lie at the ends of the ladder's window), on the long chains
+    (whose offset values are p * 2^k - 1, p * 2^k and p * 2^k + 1, so round
+    k's difference carries through every limb) and on limbs all MASK and
+    all -MASK; the limbs are the values mod p."""
+    x = _canonical_operands(case)
     if case == "edges":
-        x = torch.from_numpy(_smoke()._canonical_edges())
-        v = port._canon_reduce_body(x, c["folds"], c["topf"])
-        # the ladder's offset value v + KP on the last two lanes (exact ints)
-        low, high = (port_base._KP + sum(int(l) << (port.B * i) for i, l in enumerate(v[:, s]))
-                     for s in (5, 6))
+        low, high = _offsets(x)[5:]
         assert 0 < low < P and (P << 6) < high < (P << 7)
-    else:
-        shape = (36, 8) if case == "products-36x8" else (2, 36, 4)
-        rng = np.random.default_rng(zlib.crc32(case.encode()))
-        a, b, d, e = (torch.from_numpy(lazy(rng, shape)) for _ in range(4))
-        x = port.mul(a, b) - port.mul(d, e)
+    if case == "chains":
+        assert _offsets(x) == [(P << k) + d for k in range(port._LADDER_ROUNDS) for d in (-1, 0, 1)]
     port.reset_counts()
     got = port.canonical(x)
     want = np.asarray(ref.canonical(jnp.asarray(x.numpy())))
@@ -200,18 +225,14 @@ def _signed_ladder(x):
     return v[..., : port.W, :]
 
 
-@pytest.mark.parametrize("case", ["products-36x8", "edges"])
+@pytest.mark.parametrize("case", ["products-36x8", "edges", "chains", "all-mask"])
 def test_signed_ladder_equals_canonical(case):
     """The ladder's signed form, which `add_exact_f1` runs for its zero
     tests, gives the plain body's limbs on the operands canonical() is
-    held on: seeded differences of products (H and R are such) and the
-    edge operands at both ends of the ladder's window."""
-    if case == "edges":
-        x = torch.from_numpy(_smoke()._canonical_edges())
-    else:
-        rng = np.random.default_rng(zlib.crc32(case.encode()))
-        a, b, d, e = (torch.from_numpy(lazy(rng, (36, 8))) for _ in range(4))
-        x = port.mul(a, b) - port.mul(d, e)
+    held on: seeded differences of products (H and R are such), the edge
+    operands at both ends of the ladder's window, the long chains and
+    limbs all MASK and all -MASK."""
+    x = _canonical_operands(case)
     c = port.consts("cpu")
     assert torch.equal(_signed_ladder(x), port._canonical_fn(c["folds"], c["topf"], x))
 
