@@ -16,13 +16,13 @@ non-zero before the last line:
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
 2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
-   function; for the twenty-two cooperative kernels (csrc/coop.cuh:
+   function; for the twenty-three cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
    add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step, g2_win_step, f2mul,
    f2sqr, f6mul, f12mul, f12sqr, f12mul_034, the Fermat inversions inv_w4,
    inv_bin,
-   hash-to-G2's ratio_chain, mul, one warp per lane element, and the
-   ladder steps ladder_step_f1, ladder_step_f2, each the add's and the
+   hash-to-G2's ratio_chain, mul and sqr, one warp per lane element, and
+   the ladder steps ladder_step_f1, ladder_step_f2, each the add's and the
    doubling's programs in one block),
    their ptxas line, the dynamic shared memory their library launches
    them with (held equal to their programs' layout) and their programs'
@@ -39,7 +39,9 @@ non-zero before the last line:
    doubling once a width), in device ms and bound at 1 ... 4,096 lanes
    with the latency floor at S = 1; the cooperative mul also at S = 1,
    2, 1,024 and at its paths' stacks 12 x 1, 2 x 1 and 2 x
-   1,024 (MUL_S), in device ms and bound there; slice 4's norm3, f12sqr,
+   1,024 (MUL_S), and the cooperative sqr at S = 1, 128 and 1,024 (SQR_S:
+   its one launch a verify at buckets 128 and 1024), in device ms and
+   bound there; slice 4's norm3, f12sqr,
    f12mul_034, ladder_step_f1,
    ladder_step_f2, ubench_mul and ubench_mul_chain (R = 3) on seeded
    operands at those widths and at S = 1 and 2 (infinity lanes on both
@@ -144,7 +146,8 @@ non-zero before the last line:
    (`device_totals`), each kernel's share. The microbenchmark at S =
    110,592 and R = 40: one product, R chained products in one launch and
    the lane baseline (norm3 on both operands, R launches of mul), against
-   Python ints, then its
+   Python ints, the chain's device ms and bound at S = 4,096 and 110,592
+   (R = 40), then its
    ms per launch and per element-product (lighthouse_tpu_torch.tools.
    ubench_mul.run), there and at 1,024 lanes.
 8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
@@ -156,9 +159,10 @@ non-zero before the last line:
    kernels' dynamic shared memory, as each library reports it; the
    cooperative kernels' device ms and bound at S = 1, 2 and 1024,
    canonical's at CANON_S and reduce_light's at RL_S, f2mul's and
-   f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, the
-   ladder steps' also with every bit set, and the latency floor at S = 1;
-   the ladder steps' device ms over phase 7's 64 launches);
+   f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, sqr's
+   at 1, 128 and 1024 (not 2), the ladder steps' also with every bit set,
+   and the latency floor at S = 1; the ladder steps' device ms over phase
+   7's 64 launches; the chain's device ms and bound at 4096 and 110592);
    9. the `ok` JSON line (last).
 """
 
@@ -351,7 +355,7 @@ COOP_LIBS = {"miller_dbl_iter": "miller", "cyc_sqr": "miller", "jac_dbl_f2": "ja
              "f12mul": "tower", "inv_w4": "inv", "inv_bin": "inv", "ratio_chain": "htc",
              "miller_add_iter": "miller", "f2mul": "tower", "f2sqr": "tower",
              "jac_dbl_f1": "jac_dbl", "jac_add_f1": "jac_add", "add_exact_f1": "jac_add",
-             "f6mul": "tower", "mul": "fp_mul", "ladder_step_f1": "ladder",
+             "f6mul": "tower", "mul": "fp_mul", "sqr": "fp_mul", "ladder_step_f1": "ladder",
              "ladder_step_f2": "ladder", "f12sqr": "tower", "f12mul_034": "tower"}
 REDESIGNED = tuple(COOP_LIBS)
 REDESIGNED_S = (1, 2, 1024)
@@ -360,6 +364,12 @@ REDESIGNED_S = (1, 2, 1024)
 # KZG check), the affine conversions' f2inv 2 x 1,024 (1 x 1,024: S=1024);
 # held there on seeded operands [K, 36, S] and read in device ms
 MUL_S = (*REDESIGNED_S, (12, 1), (2, 1), (2, 1024))
+# sqr's: one lane, and its one launch a verify, 1 x 128 and 1 x 1,024
+# (_to_affine_g1 at the bucket's width); held there on seeded operands and
+# read in device ms
+SQR_S = (1, 128, 1024)
+# the kernels held and read at widths of their own beyond the phase 3 shapes
+SEEDED_S = {"mul": MUL_S, "sqr": SQR_S}
 # f2mul's and f2sqr's widths in a bucket-1024 verify beyond those: 2,048
 # lanes and a stack of 4 x 2,048 (K, S); held there and read in device ms
 # on one element of the recorded stack (Fp2 operands [2, W, S])
@@ -1265,16 +1275,16 @@ def phase_kernels() -> dict:
         if name in MSM_KERNELS:
             max_err = max(max_err, _msm_width_holds(rng, name, branches))
             timing.update(_widths_ms(name, main, MSM_S))
-        if name == "mul":
-            for w in MUL_S:
-                shape = (w[0], 36, w[1]) if isinstance(w, tuple) else (36, w)
-                max_err = max(max_err, _hold(name, _inputs(rng, shape, name), str(shape)))
-            timing.update(_widths_ms(name, main, MUL_S))
+        for w in SEEDED_S.get(name, ()):
+            shape = (w[0], 36, w[1]) if isinstance(w, tuple) else (36, w)
+            max_err = max(max_err, _hold(name, _inputs(rng, shape, name), str(shape)))
+        if name in SEEDED_S:
+            timing.update(_widths_ms(name, main, SEEDED_S[name]))
         out[name] = dict(max_abs_err=max_err, **timing)
         say("kernel", name=name, equal="yes", tolerance="exact(torch.equal)",
             shapes="36x4096,2x36x128,36x4097"
             + (",S=" + "|".join(map(str, MSM_S[:-1])) if name in MSM_KERNELS else "")
-            + ("," + ",".join(map(_label, MUL_S)) if name == "mul" else ""),
+            + "".join("," + _label(w) for w in SEEDED_S.get(name, ())),
             operands="seeded" + {"jac_add_f1": "(every infinity combination)",
                                  "add_exact_f1": "(planted: " + ",".join(EXACT_CASES) + ")"
                                  }.get(name, ""),
@@ -2107,6 +2117,19 @@ def _ubench(card: str, out: dict) -> dict:
         row = out.setdefault(name, {})
         row.update(max_abs_err=max(row.get("max_abs_err", 0), err), slice4_path_S=S,
                    slice4_path_call_ms=_median_ms(lambda: _op(name)(*args), reps=5))
+    # the chain's device ms and bound at 4,096 lanes and at the reference's
+    # width, R = 40
+    row = out["ubench_mul_chain"]
+    for width in (4096, S):
+        args = [A[:, :width].contiguous(), Bm[:, :width].contiguous(), UBENCH_R]
+        ms, by = _kernel_ms("ubench_mul_chain", lambda: U.mul_chain(*args))
+        row[f"ms_S{width}"] = ms
+        row[f"bound_ms_S{width}"] = bound_ms("ubench_mul_chain", args, [U.mul_chain(*args)])[0]
+        if by != "profiler":
+            row[f"ms_S{width}_timed_by"] = by
+    say("ubench", kernel="ubench_mul_chain", R=UBENCH_R,
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()
+           if k.startswith(("ms_S", "bound_ms_S"))})
     # the reference's width, then the BLS path's widest bucket
     runs = {}
     for width in (S, 1024):

@@ -25,8 +25,8 @@
 // - a fold is a dot product of the top limbs (broadcast) with a FOLDS row
 //   per lane, read from the block's copy of FOLDS in shared memory (a row
 //   stride of 41 ints puts the 32 lanes in 32 banks).
-// Every value is the one the one-thread body (fp_lane.cuh `mul_body`,
-// `sqr_body`, `reduce_light_body`) computes, limb for limb.
+// Every value is the one the plain body (ops/lane/fp.py `_mul_body`,
+// `_sqr_fn`, `_reduce_light_body`) computes, limb for limb.
 #pragma once
 
 #include "fp_lane.cuh"
@@ -190,7 +190,7 @@ __device__ __forceinline__ void store_row(int* smem, int out, int dump, int x0, 
   smem[dump + c.l + ((hi - dump - c.l) & opaque(c.m4))] = x1;
 }
 
-// `mul_body<true, true>` (kind MUL) or `sqr` (kind SQR) by one warp: the
+// `_mul_body` (kind MUL) or `_sqr_fn` (kind SQR) by one warp: the
 // entry norms (a product's two at mul.entry_a/b, a square's one at
 // sqr.entry, its operand then both factors), convolution, 73-column carry
 // passes, the folds 73 -> 36 (+ a zero limb 36), 37 -> 36, 36 -> 36.

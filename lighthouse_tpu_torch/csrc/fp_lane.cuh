@@ -130,42 +130,6 @@ __device__ __forceinline__ void fold(const int* x, int* out) {
   }
 }
 
-// `_mul_body`: optional entry norms, conv, 73-limb norm, three folds
-// (73 -> 36 padded to 37, 37 -> 36, 36 -> 36).
-template <bool NORM_A, bool NORM_B>
-__device__ __forceinline__ void mul_body(int* out, const int* a_in,
-                                         const int* b_in) {
-  int a[W], b[W];
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    a[i] = a_in[i];
-    b[i] = b_in[i];
-  }
-  if (NORM_A) norm<W, MUL_ENTRY_A>(a);
-  if (NORM_B) norm<W, MUL_ENTRY_B>(b);
-  int wide[CONVW];
-  conv(a, b, wide);
-  norm<CONVW, MUL_WIDE>(wide);
-  int x37[37];
-  fold<CONVW, 0>(wide, x37);
-  x37[36] = 0;
-  norm<37, MUL_FOLD37>(x37);
-  int x36[W];
-  fold<37, 38>(x37, x36);
-  norm<W, MUL_FOLD36>(x36);
-  fold<W, 40>(x36, out);
-  norm<W, MUL_FOLD35>(out);
-}
-
-// `_sqr_fn`: one sqr.entry pass, then the product without entry norms.
-__device__ __forceinline__ void sqr_body(int* out, const int* a_in) {
-  int a[W];
-#pragma unroll
-  for (int i = 0; i < W; ++i) a[i] = a_in[i];
-  norm<W, SQR_ENTRY>(a);
-  mul_body<false, false>(out, a, a);
-}
-
 // `fold<W, 40>` through a FOLDS column read at col[i * STRIDE]: NFOLD in
 // the whole FOLDS table, 1 where the column is packed.
 template <int STRIDE, class Col>

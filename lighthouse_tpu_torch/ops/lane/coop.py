@@ -15,8 +15,8 @@ fp._inv_bin_body, jacobian._add_core_f2, chains._win_core_f1,
 htc._ratio_table_body, htc._ratio_win_body, pairing._add_iter_body,
 tower._f2mul_body, tower._f2sqr_body, jacobian._dbl_f1_body,
 jacobian._add_core_f1, jacobian._add_exact_core_f1, tower._f6mul_body,
-fp._mul_fn, tower._f12sqr_body, tower._f12mul_034_body): run on symbolic
-rows,
+fp._mul_fn, tower._f12sqr_body, tower._f12mul_034_body, fp._sqr_fn): run
+on symbolic rows,
 each of their Fp products, squares and `reduce_light`s becomes a job whose operands
 are the integer combinations of rows that the body's lazy sums (a0 + a1,
 3 t - 2 c, f2mul_xi, ...) made, and a job evaluates them limb by limb
@@ -48,9 +48,9 @@ bit is set, then the doubling's (LADDERS; csrc/ladder.cu). The bit is a
 select like the add's infinity, uniform over the block, so where it is
 clear the block skips the add's program.
 
-A one-job program (the standalone `mul`) would leave all but one warp of
-such a block idle, and the block's copy of the tables would cost as much
-as its job. Its kernel lays the block out by warp instead (PER_WARP): a
+A one-job program (the standalone `mul` and `sqr`) would leave all but one
+warp of such a block idle, and the block's copy of the tables would cost as
+much as its job. Its kernel lays the block out by warp instead (PER_WARP): a
 block of NW warps holds one copy of the tables and NW lane elements at a
 time, one a warp, each warp running the whole program on its own rows
 (csrc/coop.cuh `run_warp`).
@@ -176,7 +176,14 @@ TABLES = W * NFOLD + 3 * CONVW  # FOLDS and TOPFM, copied into shared memory
 # at 128 lanes (one lane 0.01322 / 0.01162 / 0.01104, 4,096 lanes 0.21767
 # / 0.23921 / 0.32777): 32; f12mul_034 0.01476 / 0.01310 / 0.01320 at 128
 # lanes (one lane 0.01359 / 0.01169 / 0.01191, 4,096 0.23033 / 0.24961 /
-# 0.34952): 16, also faster at 4,096.
+# 0.34952): 16, also faster at 4,096. sqr (PER_WARP, as mul) runs one
+# launch a verify, at 1 x 128 or 1 x 1,024 (the bucket's width). On 1 / 2 /
+# 4 / 8 / 16 / 32 warps 1 x 128 takes 0.00439 / 0.00466 / 0.00452 /
+# 0.00489 / 0.00607 / 0.00872 ms, 1 x 1,024 0.00566 / 0.00538 / 0.00499 /
+# 0.00496 / 0.00618 / 0.00883, one lane 0.00425 / 0.00459 / 0.00437 /
+# 0.00434 / 0.00447 / 0.00469, 4,096 0.01136 / 0.00976 / 0.00901 / 0.00888
+# / 0.00897 / 0.00902: over the two buckets 4 warps take the least
+# (0.00951 ms; 8 warps 0.00985, 1 warp 0.01005).
 # Device ms from tools/coop_warps.py on an NVIDIA H100 80GB HBM3 at 700 W.
 PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             3: ("g2_win_step", 4), 4: ("f12mul", 32), 5: ("inv_w4", 1), 6: ("inv_bin", 2),
@@ -184,10 +191,14 @@ PROGRAMS = {0: ("miller_dbl_iter", 8), 1: ("cyc_sqr", 9), 2: ("jac_dbl_f2", 4),
             10: ("ratio_win", 3), 11: ("miller_add_iter", 8), 12: ("f2mul", 3),
             13: ("f2sqr", 3), 14: ("jac_dbl_f1", 3), 15: ("jac_add_f1", 4),
             16: ("add_exact_f1", 4), 17: ("f6mul", 32), 18: ("mul", 8),
-            19: ("f12sqr", 32), 20: ("f12mul_034", 16)}
+            19: ("f12sqr", 32), 20: ("f12mul_034", 16), 21: ("sqr", 4)}
 # kernels laid out one warp per lane element (NW elements a block at a
-# time, one copy of the tables): PROGRAMS gives their warps a block
-PER_WARP = frozenset({"mul"})
+# time, one copy of the tables): PROGRAMS gives their warps a block. For
+# sqr this layout was timed against one thread an element reading its
+# tables from shared memory: about half the device time at 1 x 128 and
+# 1 x 1,024 (0.00452 / 0.00499 ms against 0.01039 / 0.01043 at 64 threads
+# a block, PERF.md §6)
+PER_WARP = frozenset({"mul", "sqr"})
 # kernel -> its programs, where it runs more than one: the ratio chain
 # (csrc/htc.cu) runs the table's once, then the window's once a digit of
 # htc._WIN_IDX, the table's outputs (its 16 entries) kept in rows above
@@ -448,6 +459,8 @@ def program(slot: int) -> np.ndarray:
         # a, b -> a b over Fp6 and over Fp
         "f6mul": (tower._f6mul_body, (FP6, FP6)),
         "mul": (fp._mul_fn, (FP, FP)),
+        # a -> a^2 over Fp: one SQR job (fp._sqr_fn, looked up when traced)
+        "sqr": (lambda folds, topf, a: fp._sqr_fn(folds, topf, a), (FP,)),
         # a -> a^2 over Fp12
         "f12sqr": (tower._f12sqr_body, (FP12,)),
         # f, c0, c1, c4 -> f (c0 + c1 v + c4 v w)

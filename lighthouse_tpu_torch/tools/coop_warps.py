@@ -23,6 +23,7 @@ Run on a machine with a CUDA card:
     python -m lighthouse_tpu_torch.tools.coop_warps add_exact_f1 --S 1 2048 4096 --warps 3 4 5
     python -m lighthouse_tpu_torch.tools.coop_warps f6mul --S 1 1024 4096 --warps 6 9 12 16 18 32
     python -m lighthouse_tpu_torch.tools.coop_warps mul --S 1 1024 4096 --K 1 2 12 --warps 1 2 4 8 16
+    python -m lighthouse_tpu_torch.tools.coop_warps sqr --S 1 128 1024 4096 --warps 1 2 4 8 16 32
     python -m lighthouse_tpu_torch.tools.coop_warps ladder_step_f2 --S 1024 4096 --warps 2 4 8
     python -m lighthouse_tpu_torch.tools.coop_warps f12sqr --S 1 128 1024 4096 --warps 8 16 32
 
@@ -30,8 +31,9 @@ Kernels: miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1,
 jac_add_f1, add_exact_f1, jac_dbl_f2, jac_add_f2, g1_win_step,
 g2_win_step, f2mul, f2sqr, f6mul, f12mul, f12sqr, f12mul_034, inv_w4,
 inv_bin, ratio_chain
-(its two programs on one warp count), mul, laid out one warp per lane
-element (coop.PER_WARP: its warps a block, each on its own element), and
+(its two programs on one warp count), mul and sqr, laid out one warp per
+lane element (coop.PER_WARP: their warps a block, each on its own
+element), and
 the ladder steps ladder_step_f1 and ladder_step_f2 (coop.LADDERS: the
 add's and the doubling's programs on a warp count of the step's own,
 their kernels' counts untouched). Several widths (--S) and stack depths
@@ -65,7 +67,7 @@ def _ops():
             "g1_win_step": chains._win_step["fp"], "g2_win_step": chains._win_step["fp2"],
             "f2mul": tower.f2mul, "f2sqr": tower.f2sqr, "f6mul": tower.f6mul,
             "f12mul": tower.f12mul, "f12sqr": tower.f12sqr, "f12mul_034": tower.f12mul_034,
-            "mul": fp.mul,
+            "mul": fp.mul, "sqr": fp.sqr,
             "inv_w4": chains.inv_w4,
             "inv_bin": fp.inv_bin,
             "ratio_chain": htc.ratio_chain_op,

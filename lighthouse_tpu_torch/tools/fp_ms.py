@@ -1,13 +1,16 @@
-"""Device time of `canonical` and `reduce_light` a launch, at the widths a
-BLS verify runs them.
+"""Device time of `canonical`, `reduce_light` and `sqr` a launch, at the
+widths a BLS verify runs them, and of the microbenchmark's chained product
+`ubench_mul_chain` at R = 40.
 
 One JSON line a kernel and width, with the card's `nvidia-smi` name and
 power limit; device ms from the profiler (the median of 4 traces of 20
 launches, tools/ladder_ms.py's trace), after the kernel's output, through
-`fp.canonical_op` and `fp.reduce_light`, is held torch.equal to the plain
-body on the same seeded operands. Run on a machine with a CUDA card:
+`fp.canonical_op`, `fp.reduce_light`, `fp.sqr` and `ubench_mul.mul_chain`,
+is held torch.equal to the plain body on the same seeded operands (the
+chain's, the microbenchmark's 8 tiled elements). Run on a machine with a
+CUDA card:
 
-    python -m lighthouse_tpu_torch.tools.fp_ms
+    python -m lighthouse_tpu_torch.tools.fp_ms [kernel ...]
 
 It calls only the package's entry points, so a copy of it in another tree
 of the package (its tools/, beside ladder_ms.py) times that tree's kernels
@@ -25,34 +28,44 @@ import numpy as np
 import torch
 
 from ..ops.lane import fp
+from . import ubench_mul as U
 from .ladder_ms import REPS, _device_time, _trace, card
 
-# the widths a bucket-1024 verify runs each at, as (K, S) stacks, and the
-# recorded pairing layout of 6 x 4,096 lane elements for reduce_light
+# the widths a bucket-1024 verify runs each at, as (K, S) stacks, the
+# recorded pairing layout of 6 x 4,096 lane elements for reduce_light,
+# sqr's one launch a verify at buckets 128 and 1024 (and one lane, and
+# 4,096), and the chain at 4,096 lanes and the microbenchmark's 110,592
 WIDTHS = {
     "canonical": [(1, 1), (2, 1), (2, 1024), (8, 2048)],
     "reduce_light": [(2, 2048), (6, 1), (1, 4097), (6, 4096)],
+    "sqr": [(1, 1), (1, 128), (1, 1024), (1, 4096)],
+    "ubench_mul_chain": [(1, 4096), (1, U.S_DEFAULT)],
 }
+CHAIN_R = U.R_DEFAULT
 
 
-def operands(name: str, K: int, S: int, seed: int = 19) -> torch.Tensor:
+def operands(name: str, K: int, S: int, seed: int = 19) -> list:
     """Seeded operands [K, W, S]: canonical's a difference of two standard
-    elements (eq_zero's), reduce_light's a sum of three, signs mixed."""
+    elements (eq_zero's), reduce_light's and sqr's a sum of three, signs
+    mixed; the chain's the microbenchmark's, and R."""
+    if name == "ubench_mul_chain":
+        _, _, a, b = U.operands(S, "cuda")
+        return [a, b, CHAIN_R]
     rng = np.random.default_rng(seed)
 
     def std():
         return rng.integers(0, 1 << fp.B, (K, fp.W, S), dtype=np.int32)
 
     a = std() - std() if name == "canonical" else std() + std() - std()
-    return torch.from_numpy(a).cuda()
+    return [torch.from_numpy(a).cuda()]
 
 
-def launch_turns(pattern: str, fn) -> list:
-    """One launch's device ms in each of 4 traces of REPS launches: the
-    kernel whose trace name matches `pattern`."""
+def launch_turns(pattern: str, fn, traces: int = 4) -> list:
+    """One launch's device ms in each of `traces` traces of REPS launches:
+    the kernel whose trace name matches `pattern`."""
     fn()
     turns = []
-    for _ in range(4):
+    for _ in range(traces):
         def reps():
             for _ in range(REPS):
                 fn()
@@ -65,27 +78,37 @@ def launch_turns(pattern: str, fn) -> list:
     return turns
 
 
-def library(out=print) -> list:
+OPS = {"canonical": fp.canonical_op, "reduce_light": fp.reduce_light, "sqr": fp.sqr,
+       "ubench_mul_chain": U.mul_chain}
+
+
+def library(names=tuple(OPS), out=print) -> list:
     rows = []
-    for name, op in (("canonical", fp.canonical_op), ("reduce_light", fp.reduce_light)):
+    for name in names:
+        op = OPS[name]
         for K, S in WIDTHS[name]:
-            x = operands(name, K, S)
-            if not torch.equal(op(x), op.plain(x)):
+            args = operands(name, K, S)
+            if not torch.equal(op(*args), op.plain(*args)):
                 raise AssertionError(f"{name} {K}x{S}: kernel != plain body")
-            turns = launch_turns(rf"\bk_{name}\b", lambda: op(x))
+            turns = launch_turns(rf"\bk_{name}\b", lambda: op(*args))
             rows.append(dict(tool="fp_ms", kernel=name, K=K, S=S,
+                             **({"R": CHAIN_R} if name == "ubench_mul_chain" else {}),
                              device_ms=statistics.median(turns), device_ms_turns=turns,
                              equal_to_plain_body=True, card=card()))
             out(json.dumps(rows[-1]))
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    names = (sys.argv[1:] if argv is None else argv) or list(OPS)
+    if not set(names) <= set(OPS):
+        print(f"fp_ms: kernels are {', '.join(OPS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("fp_ms: torch sees no CUDA device", file=sys.stderr)
         return 2
     print(card(), flush=True)
-    library(lambda s: print(s, flush=True))
+    library(names, lambda s: print(s, flush=True))
     return 0
 
 

@@ -3,9 +3,10 @@ reference's tools/ubench_pallas.py.
 
 Two hand-written CUDA kernels (csrc/ubench_mul.cu) over the round-2 product
 in the [36, S] layout, with a 3-pass carry normalization at every site:
-`mul` normalizes both operands and takes one product per launch;
-`mul_chain` normalizes both and takes R chained products x <- x b in one
-launch, R a kernel argument. Beside them, the lane baseline: the Fp core's
+`mul` normalizes both operands and takes one product per launch, its
+tables in the constant bank; `mul_chain` normalizes both and takes R
+chained products x <- x b in one launch, R a kernel argument, its tables
+in the block's shared memory. Beside them, the lane baseline: the Fp core's
 `norm3` on both operands, then R launches of the lane `mul`
 (ops/lane/fp.py). The chain against the baseline says what R products in
 one launch save against R launches.
@@ -19,13 +20,23 @@ reference's defaults. It prints the correctness of the products on 8 lanes
 against Python ints, then ms per launch and ps per element-product of the
 single kernel, the chain and the lane baseline. `--device cpu` runs the
 plain PyTorch versions (use a small S).
+
+    python -m lighthouse_tpu_torch.tools.ubench_mul --sweep 64:1 128:2 --S 4096 110592
+
+times the chain's launch shapes instead: csrc/ubench_mul.cu built once a
+THREADS:MIN_BLOCKS pair (threads a block, the launch bound's minimum
+blocks an SM), all builds in parallel, each held torch.equal to the plain
+body at each S, then timed in turns (a b b a, the profiler's device ms),
+one JSON line a pair and S with its ptxas line and the card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import random
+import subprocess
 import sys
 import threading
 import time
@@ -129,18 +140,23 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
+def _bind(out=None):
+    """The ubench_mul library built in `out` (default: with the others,
+    kernels.build), its own tables copied in, its two entries bound (R an
+    int argument)."""
+    so = kernels.load("ubench_mul", FOLDS, TOPFM, out)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    so.lh_ubench_mul.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    so.lh_ubench_mul_chain.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    so.lh_ubench_mul.restype = so.lh_ubench_mul_chain.restype = i32
+    return so
+
+
 def _lib():
-    """The ubench_mul library, built with the others (kernels.build), its
-    own tables copied in, its two entries bound (R an int argument)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            so = kernels.load("ubench_mul", FOLDS, TOPFM)
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            so.lh_ubench_mul.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-            so.lh_ubench_mul_chain.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-            so.lh_ubench_mul.restype = so.lh_ubench_mul_chain.restype = i32
-            _LIB = so
+            _LIB = _bind()
     return _LIB
 
 
@@ -185,18 +201,23 @@ class UbenchKernel:
         K = a.numel() // (W * S) if S else 0
         if K * S == 0:
             raise ValueError(f"{self.name}: empty batch")
-        out = torch.empty_like(a)
-        lib = _lib()
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
-            fn = getattr(lib, self.symbol)
-            rc = fn(*ptrs, n, K, S, stream) if self.chained else fn(*ptrs, K, S, stream)
-        if rc:
-            msg = lib.lh_ubench_mul_error_string(rc).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc}: {msg}")
+        out = _launch(_lib(), self.symbol, a, b, (n,) if self.chained else (), K, S)
         fp.LAUNCHES[self.name] += 1
         return out
+
+
+def _launch(lib, symbol: str, a, b, rounds: tuple, K: int, S: int):
+    """C entry `symbol` of `lib` on contiguous [K, W, S] operands, on the
+    current stream; a fresh output, or raise."""
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = getattr(lib, symbol)(a.data_ptr(), b.data_ptr(), out.data_ptr(), *rounds, K, S,
+                                  stream)
+    if rc:
+        msg = lib.lh_ubench_mul_error_string(rc).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {rc}: {msg}")
+    return out
 
 
 mul = UbenchKernel("ubench_mul", "lh_ubench_mul", chained=False)
@@ -283,12 +304,97 @@ def run(S: int = S_DEFAULT, R: int = R_DEFAULT, device=None, out=print) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- sweep
+
+
+def build_variants(shapes) -> dict:
+    """csrc/ubench_mul.cu built once a (threads, min_blocks) pair, with
+    UB_CHAIN_THREADS and UB_CHAIN_MIN_BLOCKS set, each in a directory of
+    its own beside the kernels' build, all nvcc runs started together;
+    returns pair -> (directory, ptxas log)."""
+    base = kernels.build_dir()
+    jobs = {}
+    for t, m in shapes:
+        out = base / f"ubench_chain_{t}x{m}"
+        out.mkdir(parents=True, exist_ok=True)
+        so = out / "libubench_mul.so"
+        if so.exists():
+            jobs[t, m] = (None, out)
+            continue
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-DUB_CHAIN_THREADS={t}",
+               f"-DUB_CHAIN_MIN_BLOCKS={m}", "-o", str(so), str(kernels.CSRC / "ubench_mul.cu")]
+        jobs[t, m] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), out)
+    built = {}
+    for pair, (proc, out) in jobs.items():
+        if proc is not None:
+            log, _ = proc.communicate()
+            (out / "ubench_mul.log").write_text(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"ubench_mul.cu at {pair}: nvcc failed:\n{log}")
+        built[pair] = (out, (out / "ubench_mul.log").read_text())
+    return built
+
+
+def chain_ptxas(log: str) -> list:
+    """k_ubench_mul_chain's lines of a ptxas -v log: its stack frame and
+    spills, its registers and shared memory."""
+    lines = log.splitlines()
+    return [lines[i + j].split(":", 1)[-1].strip() for i, line in enumerate(lines)
+            if "Function properties for" in line and "k_ubench_mul_chain" in line
+            for j in (1, 2) if i + j < len(lines)]
+
+
+def sweep(shapes, widths, R: int = R_DEFAULT, out=print) -> list:
+    """The chain at each (threads, min_blocks) of `shapes` and each S of
+    `widths`: held torch.equal to the plain body, then the profiler's
+    device ms of a launch in 4 turns a b b a."""
+    from .fp_ms import launch_turns
+    from .ladder_ms import card
+
+    built = build_variants(shapes)
+    libs = {pair: _bind(d) for pair, (d, _) in built.items()}
+    rows = []
+    for S in widths:
+        _, _, A, Bm = operands(S, "cuda")
+        want = mul_chain.plain(A, Bm, R)
+        for pair, lib in libs.items():
+            if not torch.equal(_launch(lib, "lh_ubench_mul_chain", A, Bm, (R,), 1, S), want):
+                raise AssertionError(f"the chain at {pair}, S={S}: kernel != plain body")
+        turns = {pair: [] for pair in libs}
+        order = list(libs)
+        for turn in range(4):
+            for pair in (order if turn % 2 == 0 else order[::-1]):
+                turns[pair] += launch_turns(
+                    r"\bk_ubench_mul_chain\b",
+                    lambda: _launch(libs[pair], "lh_ubench_mul_chain", A, Bm, (R,), 1, S),
+                    traces=1)
+        for (t, m), ms in turns.items():
+            rows.append(dict(tool="ubench_mul --sweep", threads=t, min_blocks=m, S=S, R=R,
+                             device_ms=float(np.median(ms)), device_ms_turns=ms,
+                             ptxas=chain_ptxas(built[t, m][1]), equal_to_plain_body=True,
+                             card=card()))
+            out(json.dumps(rows[-1]))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("S", type=int, nargs="?", default=S_DEFAULT, help="lanes")
     ap.add_argument("R", type=int, nargs="?", default=R_DEFAULT, help="chained products")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--sweep", nargs="+", metavar="THREADS:MIN_BLOCKS",
+                    help="time the chain's launch shapes instead")
+    ap.add_argument("--S", dest="widths", type=int, nargs="+", default=[4096, S_DEFAULT],
+                    help="the sweep's lanes")
     args = ap.parse_args(argv)
+    if args.sweep:
+        if not torch.cuda.is_available():
+            print("ubench_mul: torch sees no CUDA device", file=sys.stderr)
+            return 2
+        shapes = [tuple(int(v) for v in p.split(":")) for p in args.sweep]
+        sweep(shapes, args.widths, args.R)
+        return 0
     return 0 if run(args.S, args.R, args.device)["ok"] else 1
 
 

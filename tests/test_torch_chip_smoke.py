@@ -117,25 +117,30 @@ def test_exact_add_planted_lanes_take_every_case(monkeypatch):
 def test_cooperative_kernels_are_the_programs_kernels():
     """COOP_LIBS (phase 2's `[build]` lines, phase 3's widths) names each
     kernel that runs a cooperative program, by the library that launches
-    it, and REDESIGNED is that set: twenty-two, among them f6mul, f12sqr
+    it, and REDESIGNED is that set: twenty-three, among them f6mul, f12sqr
     and f12mul_034 (tower),
-    mul (fp_mul, one warp per lane element) and the ladder steps (ladder,
-    the add's and the doubling's programs in one block), held at their
-    paths' widths, mul's stacks in MUL_S."""
+    mul and sqr (fp_mul, one warp per lane element) and the ladder steps
+    (ladder, the add's and the doubling's programs in one block), held at
+    their paths' widths, mul's stacks in MUL_S, sqr's widths in SQR_S."""
     from lighthouse_tpu_torch.ops.lane import coop, kernels
 
     names = {n for n, _ in coop.PROGRAMS.values()}
     for chain, parts in coop.CHAINS.items():
         names = (names - set(parts)) | {chain}
     names |= set(coop.LADDERS)
-    assert set(smoke.COOP_LIBS) == names and len(names) == 22
+    assert set(smoke.COOP_LIBS) == names and len(names) == 23
     assert {smoke.COOP_LIBS[n] for n in coop.LADDERS} == {"ladder"}
     assert smoke.REDESIGNED == tuple(smoke.COOP_LIBS)
     for name, lib in smoke.COOP_LIBS.items():
         assert kernels.ENTRIES[smoke._op(name).symbol][0] == lib, name
     assert (smoke.COOP_LIBS["f6mul"], smoke.COOP_LIBS["mul"]) == ("tower", "fp_mul")
-    assert coop.PER_WARP == {"mul"}
+    assert smoke.COOP_LIBS["sqr"] == "fp_mul"
+    assert coop.PER_WARP == {"mul", "sqr"}
     assert smoke.MUL_S == (1, 2, 1024, (12, 1), (2, 1), (2, 1024))
+    # sqr at one lane and its one launch a verify, 1 x 128 and 1 x 1,024
+    assert smoke.SQR_S == (1, 128, 1024)
+    assert smoke.SEEDED_S == {"mul": smoke.MUL_S, "sqr": smoke.SQR_S}
+    assert set(smoke.SEEDED_S) <= set(smoke.SEEDED)
     # f12sqr and f12mul_034 (tower) also at the unfused doubling's 128 lanes
     assert smoke.F12_S == (1, 2, 1024, 128)
     assert all(smoke.COOP_LIBS[n] == "tower" for n in smoke.F12_KERNELS)

@@ -5,8 +5,8 @@
 `g2_win_step`, `f2mul`, `f2sqr`, `f6mul`, `f12mul`, `f12sqr`, the sparse
 line product `f12mul_034`, the inversion chains
 `inv_w4` and `inv_bin`, hash-to-G2's ratio chain (two programs, its table
-and its window) and the standalone `mul` (one job, one warp per lane
-element) run
+and its window) and the standalone `mul` and `sqr` (one job each, one
+warp per lane element) run
 on the card as programs of warp jobs (csrc/coop.cuh), traced from their
 plain bodies. Here each encoded program is executed on CPU tensors
 job by job with the plain Fp bodies, stage by stage with its row reuse,
@@ -84,8 +84,10 @@ BODIES = {
     # Miller doubling's halves, f at the square's 4-unit output
     "f12sqr": (tower._f12sqr_body, [F12], [4], 36),
     "f12mul_034": (tower._f12mul_034_body, [F12, F2, F2, F2], [4, 1, 1, 1], 39),
-    # one product: the standalone `mul`, laid out one warp per lane element
+    # one product: the standalone `mul`, laid out one warp per lane element;
+    # one square: the standalone `sqr`, the same
     "mul": (fp._mul_fn, [(), ()], [3, 1], 1),
+    "sqr": (fp._sqr_fn, [()], [3], 1),
     # a, 1 -> a^(p-2): 385 squares and 109 products; 380 and 229
     "inv_w4": (chains._inv_w4_body, [(), ()], [2, ONE], 494),
     "inv_bin": (fp._inv_bin_body, [(), ()], [2, ONE], 609),
@@ -100,10 +102,10 @@ SOURCES = {"miller_dbl_iter": "miller.cu", "miller_add_iter": "miller.cu", "cyc_
            "g2_win_step": "chains.cu", "f12mul": "tower.cu", "inv_w4": "inv.cu",
            "inv_bin": "inv.cu", "ratio_table": "htc.cu", "ratio_win": "htc.cu",
            "f2mul": "tower.cu", "f2sqr": "tower.cu", "f6mul": "tower.cu", "mul": "fp_mul.cu",
-           "f12sqr": "tower.cu", "f12mul_034": "tower.cu"}
+           "f12sqr": "tower.cu", "f12mul_034": "tower.cu", "sqr": "fp_mul.cu"}
 # the jobs of each stage, where a kernel's docstring states them
 STAGE_JOBS = {"f2mul": [3, 2], "f2sqr": [2], "f6mul": [18, 12, 6], "f12mul": [54, 36, 18],
-              "mul": [1], "f12sqr": [36, 24, 12], "f12mul_034": [39, 26]}
+              "mul": [1], "f12sqr": [36, 24, 12], "f12mul_034": [39, 26], "sqr": [1]}
 
 
 def lazy(rng, lead, comp, S, terms):
@@ -365,6 +367,9 @@ def test_square_is_a_job_kind_of_its_own():
         assert [kind for kind, _, _ in t.jobs] == [coop.SQR if name == "sqr" else coop.MUL]
         got[name] = coop.run_reference(coop.encode(t, outs), a[None], c["folds"], c["topf"])[0]
         assert torch.equal(got[name], body(c["folds"], c["topf"], a))
+    # the standalone `sqr`'s program (csrc/fp_mul.cu k_sqr) is that one job
+    assert np.array_equal(coop.program(coop.slot("sqr")),
+                          coop.encode(*coop.trace(bodies["sqr"], (coop.FP,))))
     assert not torch.equal(got["sqr"], got["mul"])
     assert fp.unpack(fp.canonical(got["sqr"])) == fp.unpack(fp.canonical(got["mul"]))
 
@@ -415,17 +420,17 @@ def test_programs_fit_the_constant_bank():
     # with the ratio chain's table (399 words) and window (68), and its 191
     # digits, miller_add_iter's 978 words, f2mul's 42, f2sqr's 25,
     # jac_dbl_f1's 73, jac_add_f1's 125, add_exact_f1's 194, f6mul's 269,
-    # mul's 15, f12sqr's 618 and f12mul_034's 514: 13,281 words of
-    # twenty-one programs, 15,167 of the bank's words with the digits and
-    # the tables, 1,217 left
-    assert (words, digits, coop.TABLES) == (11473 + 198 + 194 + 269 + 15 + 618 + 514, 191,
-                                            1695)
-    assert words == 13281 and words + digits + coop.TABLES == 15167
-    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 1217
+    # mul's 15, f12sqr's 618, f12mul_034's 514 and sqr's 14: 13,295 words
+    # of twenty-two programs, 15,181 of the bank's words with the digits
+    # and the tables, 1,203 left
+    assert (words, digits, coop.TABLES) == (
+        11473 + 198 + 194 + 269 + 15 + 618 + 514 + 14, 191, 1695)
+    assert words == 13295 and words + digits + coop.TABLES == 15181
+    assert coop.BANK_WORDS - (words + digits + coop.TABLES) == 1203
     src = (CSRC / "jac_add.cu").read_text()
     assert "static __device__ int g_canon[CANON_WORDS];" in src and "__constant__" not in src
     fake = dict(coop.PROGRAMS)
-    fake[21], fake[22] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
+    fake[22], fake[23] = ("inv_bin", 2), ("inv_bin", 2)  # 2 x 3,055 words more
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coop, "PROGRAMS", fake)
         with pytest.raises(ValueError, match="overflow the constant bank"):
@@ -465,7 +470,7 @@ def test_header_mirrors_python():
                               ("add_exact_f1", 6, 8),
                               ("jac_dbl_f2", 6, 6), ("jac_add_f2", 12, 6),
                               ("g1_win_step", 6, 6), ("g2_win_step", 12, 12),
-                              ("f12mul", 24, 12), ("f6mul", 12, 6), ("mul", 2, 1),
+                              ("f12mul", 24, 12), ("f6mul", 12, 6), ("mul", 2, 1), ("sqr", 1, 1),
                               ("f12sqr", 12, 12), ("f12mul_034", 18, 12),
                               ("inv_w4", 2, 1), ("inv_bin", 2, 1),
                               ("ratio_table", 4, 32), ("ratio_win", 4, 2)):
@@ -526,13 +531,13 @@ def test_tracing_leaves_other_callers_the_plain_bodies():
     assert torch.equal(got[2], rl_body(a, c["folds"], c["topf"]))
 
 
-@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1", "mul",
+@pytest.mark.parametrize("name", ["g2_win_step", "ratio_chain", "add_exact_f1", "mul", "sqr",
                                   "ladder_step_f2"])
 def test_warps_override_builds_apart_and_restores(name):
     """tools/coop_warps.py's variants: another warp count writes another
     header, so its library builds in a directory of its own; the count
     comes back after. The ratio chain's two programs move together; mul's
-    count is its warps a block, each warp with its own rows; a ladder
+    and sqr's count is their warps a block, each warp with its own rows; a ladder
     step's count is its own, its programs' kernels keep theirs."""
     slots = [coop.slot(p) for p in coop.programs_of(name)]
     default, before = [coop.PROGRAMS[s] for s in slots], kernels.build_dir()

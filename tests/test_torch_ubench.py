@@ -4,13 +4,16 @@ lighthouse_tpu_torch/tools/ubench_mul.py keeps the reference's
 (tools/ubench_pallas.py) round-2 product: its own FOLDS/TOPFM tables and a
 3-pass carry normalization at every site. Its plain body, the yardstick of
 csrc/ubench_mul.cu, must give the reference `_mul_body`'s limbs exactly,
-single and chained, and the right products as Python ints. The reference
-module parses sys.argv at import, so it is loaded from its file with the
+single and chained, and the right products as Python ints; the chain's
+kernel reads the tables from a padded image in shared memory, whose layout
+and a model of the fold over it are held here too. The reference module
+parses sys.argv at import, so it is loaded from its file with the
 arguments patched.
 """
 
 import importlib.util
 import random
+import re
 import sys
 from pathlib import Path
 
@@ -82,3 +85,87 @@ def test_kernel_wrappers_refuse_wrong_arity():
         U.mul(a, a, 3)
     with pytest.raises(TypeError):
         U.mul_chain(a, a)
+
+
+def _constexprs(text):
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = ([^;]+);", text)
+            if v.strip().isdigit()}
+
+
+def _table_image(fstride, tstride):
+    """csrc/ubench_mul.cu `copy_prod_tables`: FOLDS [36, 41] with its rows
+    padded to `fstride` words, then TOPFM [3, 73] with its rows padded to
+    `tstride`; the pads 0."""
+    img = np.zeros(fp.W * fstride + 3 * tstride, np.int32)
+    img[: fp.W * fstride].reshape(fp.W, fstride)[:, : U.FOLDS.shape[1]] = U.FOLDS
+    img[fp.W * fstride :].reshape(3, tstride)[:, : U.CONVW] = U.TOPFM
+    return img
+
+
+def test_chain_table_image_and_padded_fold():
+    """The chain's tables in shared memory (csrc/ubench_mul.cu `g_prod`):
+    FOLDS' rows padded from 41 to FSTRIDE words, TOPFM's from 73 to
+    TSTRIDE, pads 0, as the source lays them out; every entry is FOLDS' or
+    TOPFM's. A model of `SharedTables::fold` and `::pass` over that image,
+    reading words as the kernel does (an int4 at a 16-byte-aligned offset
+    where four are read, an int2 at an 8-byte-aligned one where two are),
+    equals `_fold` and `_norm1` on seeded operands."""
+    src = _constexprs((Path(U.__file__).resolve().parents[1] / "csrc" / "ubench_mul.cu")
+                      .read_text())
+    fstride, tstride = src["FSTRIDE"], src["TSTRIDE"]
+    assert (fstride, tstride, src["P_FOLDS"]) == (44, 76, 0)
+    p_topfm = fp.W * fstride
+    img = _table_image(fstride, tstride)
+    assert img.shape == (36 * 44 + 3 * 76,) and img.dtype == np.int32
+    rows = img[:p_topfm].reshape(fp.W, fstride)
+    tops = img[p_topfm:].reshape(3, tstride)
+    for i in range(fp.W):
+        for k in range(fstride):
+            assert rows[i, k] == (U.FOLDS[i, k] if k < U.FOLDS.shape[1] else 0)
+    for r in range(3):
+        for k in range(tstride):
+            assert tops[r, k] == (U.TOPFM[r, k] if k < U.CONVW else 0)
+
+    widths = {"int4": 0, "int2": 0, "word": 0}
+
+    def lds(off, n):  # the words the kernel's `lds` reads, and how
+        if n == 4 and off % 4 == 0:
+            widths["int4"] += 1
+        elif n == 2 and off % 2 == 0:
+            widths["int2"] += 1
+        else:
+            widths["word"] += n
+        return img[off : off + n].astype(np.int64)
+
+    def fold(x, n, off):  # SharedTables::fold<n, off>
+        nk = n - U.FOLD_AT
+        out = np.zeros((fp.W, x.shape[-1]), np.int64)
+        for i in range(fp.W):
+            s = x[i].copy() if i < U.FOLD_AT else np.zeros(x.shape[-1], np.int64)
+            for k0 in range(0, nk, 4):
+                f = lds(i * fstride + off + k0, min(4, nk - k0))
+                for j, v in enumerate(f):
+                    s += v * x[U.FOLD_AT + k0 + j]
+            out[i] = s
+        return out
+
+    def norm_pass(x):  # SharedTables::pass<len(x)>
+        n = x.shape[0]
+        tf = np.concatenate([lds(p_topfm + U._TROW[n] * tstride + i0, min(4, n - i0))
+                             for i0 in range(0, n, 4)])
+        hi = x >> U.B
+        out = (x & U.MASK) + tf[:, None] * hi[-1]
+        out[1:] += hi[:-1]
+        return out
+
+    rng = np.random.default_rng(29)
+    for n, off in ((U.CONVW, 0), (37, 38), (fp.W, 40)):
+        x = rng.integers(-(1 << 12), 1 << 12, (n, 5), dtype=np.int32)
+        want = U._fold(torch.from_numpy(x), torch.from_numpy(U.FOLDS[:, off : off + n - U.FOLD_AT]))
+        assert np.array_equal(fold(x.astype(np.int64), n, off), want.numpy())
+        got = norm_pass(x.astype(np.int64))
+        assert np.array_equal(got, U._norm1(torch.from_numpy(x), torch.from_numpy(U.TOPFM)).numpy())
+    # the folds read a 38-entry row as 9 int4s and an int2, a 2-entry row
+    # as an int2, a 1-entry row as a word; a pass over 73, 37 and 36 limbs
+    # reads 18, 9 and 9 int4s, the first two and a word
+    assert widths == {"int4": 36 * 9 + 18 + 9 + 9, "int2": 36 + 36, "word": 36 + 2}
