@@ -146,8 +146,9 @@ non-zero before the last line:
    (`device_totals`), each kernel's share. The microbenchmark at S =
    110,592 and R = 40: one product, R chained products in one launch and
    the lane baseline (norm3 on both operands, R launches of mul), against
-   Python ints, the chain's device ms and bound at S = 4,096 and 110,592
-   (R = 40), then its
+   Python ints, the device ms and bound of the chain (R = 40), the single
+   product and norm3 at S = 4,096 and 110,592 (norm3 also with the L2
+   cleared before each launch), then its
    ms per launch and per element-product (lighthouse_tpu_torch.tools.
    ubench_mul.run), there and at 1,024 lanes.
 8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
@@ -162,7 +163,8 @@ non-zero before the last line:
    f2sqr's also at 2048 and 4x2048, mul's at 12x1, 2x1 and 2x1024, sqr's
    at 1, 128 and 1024 (not 2), the ladder steps' also with every bit set,
    and the latency floor at S = 1; the ladder steps' device ms over phase
-   7's 64 launches; the chain's device ms and bound at 4096 and 110592);
+   7's 64 launches; the microbenchmark's two kernels' and norm3's device
+   ms and bound at 4096 and 110592, norm3's also cold);
    9. the `ok` JSON line (last).
 """
 
@@ -1043,7 +1045,7 @@ def _kernel_ms(name: str, fn, reps: int = 20) -> tuple:
     fn()
     torch.cuda.synchronize()
     pat = rf"\bk_{name}\b"
-    for _ in range(2):  # a trace now and then holds no device time: one retry
+    for _ in range(4):  # a trace now and then holds no device time: three retries
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -2117,19 +2119,34 @@ def _ubench(card: str, out: dict) -> dict:
         row = out.setdefault(name, {})
         row.update(max_abs_err=max(row.get("max_abs_err", 0), err), slice4_path_S=S,
                    slice4_path_call_ms=_median_ms(lambda: _op(name)(*args), reps=5))
-    # the chain's device ms and bound at 4,096 lanes and at the reference's
-    # width, R = 40
-    row = out["ubench_mul_chain"]
+    # each kernel's device ms and bound at 4,096 lanes and at the
+    # reference's width (the chain at R = 40)
+    cuts = {}
     for width in (4096, S):
-        args = [A[:, :width].contiguous(), Bm[:, :width].contiguous(), UBENCH_R]
-        ms, by = _kernel_ms("ubench_mul_chain", lambda: U.mul_chain(*args))
-        row[f"ms_S{width}"] = ms
-        row[f"bound_ms_S{width}"] = bound_ms("ubench_mul_chain", args, [U.mul_chain(*args)])[0]
-        if by != "profiler":
-            row[f"ms_S{width}_timed_by"] = by
-    say("ubench", kernel="ubench_mul_chain", R=UBENCH_R,
-        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()
-           if k.startswith(("ms_S", "bound_ms_S"))})
+        a, b = A[:, :width].contiguous(), Bm[:, :width].contiguous()
+        cuts[width] = {"ubench_mul_chain": [a, b, UBENCH_R], "ubench_mul": [a, b], "norm3": [a]}
+    # norm3 also cold: its input fits the 50 MB L2 between launches, and its
+    # bound is DRAM's bytes, so a write of 256 MiB clears the L2 before
+    # each launch (outside the kernel's own device time)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    for name in ("ubench_mul_chain", "ubench_mul", "norm3"):
+        row, op = out[name], _op(name)
+        for width, by_name in cuts.items():
+            args = by_name[name]
+            ms, by = _kernel_ms(name, lambda: op(*args))
+            row[f"ms_S{width}"] = ms
+            row[f"bound_ms_S{width}"] = bound_ms(name, args, [op(*args)])[0]
+            if by != "profiler":
+                row[f"ms_S{width}_timed_by"] = by
+            if name == "norm3":
+                ms, by = _kernel_ms(name, lambda: (flush.fill_(0), op(*args)))
+                row[f"cold_ms_S{width}"] = ms
+                if by != "profiler":
+                    row[f"cold_ms_S{width}_timed_by"] = by
+        say("ubench", kernel=name, **({"R": UBENCH_R} if name == "ubench_mul_chain" else {}),
+            **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()
+               if k.startswith(("ms_S", "cold_ms_S", "bound_ms_S"))})
+    del flush
     # the reference's width, then the BLS path's widest bucket
     runs = {}
     for width in (S, 1024):
@@ -2206,7 +2223,7 @@ def main() -> int:
             # the cooperative kernels' device ms and bound at each
             # path width, and their blocks' dynamic shared memory
             **{key: v for key, v in k.items()
-               if key.startswith(("ms_S", "bound_ms_S", "latency_floor_ms"))},
+               if key.startswith(("ms_S", "cold_ms_S", "bound_ms_S", "latency_floor_ms"))},
             "ptxas": PTXAS.get(name, {}),
             **({"launch_smem": LAUNCH_SMEM[name]} if name in LAUNCH_SMEM else {}),
         })

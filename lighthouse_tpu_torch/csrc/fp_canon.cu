@@ -28,11 +28,19 @@
 // Design: one thread per lane element, limbs in registers, the ripples
 // and the ladder csrc/canon.cuh's `canonical_body` in its restoring form
 // (the plain body's; csrc/jac_add.cu's `add_exact_f1` runs its signed
-// form). `canonical` reads KP, the ladder and FOLDS column 40 from its
-// block's copy in shared memory (fp_lane.cuh `block_tables`), not the
-// constant bank, where a miss on the chain stalls the warp at issue.
-// `canon_reduce` and `norm3` keep their tables in constant memory; no path
-// launches them.
+// form). `canonical` reads KP, the ladder and FOLDS column 40, and
+// `canon_reduce` FOLDS column 40, from the block's copy in shared memory
+// (fp_lane.cuh `block_tables`), not the constant bank, where a miss on
+// the chain stalls the warp at issue (column 40's entries lie 41 words
+// apart, each on its own line of the bank): 0.0024 device ms at 4,096
+// lanes against 0.0055 from the bank. `norm3` reads one TOPFM row, which
+// the bank broadcasts, and keeps it there: at its path's 110,592 lanes it
+// takes 0.0130 device ms with the L2 cleared before each launch, 1.37x
+// its DRAM bytes bound of 0.0095 (0.0068 when its 16 MB input is still in
+// the L2), and at 4,096 a launch's floor (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6). No path launches `canon_reduce`; `norm3` runs twice in the
+// microbenchmark's lane baseline (tools/ubench_mul.py `lane_chain`, at its
+// 110,592 lanes).
 #include "canon.cuh"
 
 namespace {
@@ -40,11 +48,12 @@ namespace {
 __global__ void __launch_bounds__(lh::THREADS)
     k_canon_reduce(const int* __restrict__ x, int* __restrict__ out, int K,
                    int S) {
+  const volatile int* f40 = lh::block_tables<lh::T_F40, lh::T_TF>();
   long base;
   if (!lh::elem_index(K, S, &base)) return;
   int v[lh::W];
   lh::load_elem(v, x, base, S);
-  lh::canon_reduce_body(v);
+  lh::canon_reduce_body<1>(v, f40);
   lh::store_elem(out, v, base, S);
 }
 

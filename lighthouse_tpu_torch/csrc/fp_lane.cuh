@@ -115,23 +115,9 @@ __device__ __forceinline__ void conv(const int* a, const int* b, int* acc) {
   }
 }
 
-// `_fold(x, folds[:, OFF:OFF + N - FOLD_AT])`: N limbs -> W limbs,
-// out[i] = (i < FOLD_AT ? x[i] : 0) + sum_k folds[i][OFF+k] * x[FOLD_AT+k].
-template <int N, int OFF>
-__device__ __forceinline__ void fold(const int* x, int* out) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    int s = i < FOLD_AT ? x[i] : 0;
-#pragma unroll
-    for (int k = 0; k < N - FOLD_AT; ++k) {
-      s += c_folds[i * NFOLD + OFF + k] * x[FOLD_AT + k];
-    }
-    out[i] = s;
-  }
-}
-
-// `fold<W, 40>` through a FOLDS column read at col[i * STRIDE]: NFOLD in
-// the whole FOLDS table, 1 where the column is packed.
+// `_fold(x, folds[:, 40:41])`, 36 limbs -> 36, through a FOLDS column
+// read at col[i * STRIDE]: NFOLD in the whole FOLDS table, 1 where the
+// column is packed.
 template <int STRIDE, class Col>
 __device__ __forceinline__ void fold_col(const int* x, int* out, Col col) {
 #pragma unroll
@@ -140,10 +126,10 @@ __device__ __forceinline__ void fold_col(const int* x, int* out, Col col) {
 
 // `_canon_reduce_body`, in place: open passes and four single-row folds
 // through FOLDS column 40, at `f40` with its entries STRIDE words apart
-// (default: the constant bank's; a cooperative kernel passes its block's
-// copy of FOLDS in shared memory, `canonical` its packed column).
-template <int STRIDE = NFOLD, class Col = const int*>
-__device__ __forceinline__ void canon_reduce_body(int* x, Col f40 = c_folds + 40) {
+// (a cooperative kernel passes its block's copy of FOLDS in shared
+// memory, `canonical` and `canon_reduce` their packed column).
+template <int STRIDE, class Col>
+__device__ __forceinline__ void canon_reduce_body(int* x, Col f40) {
   int t[W];
   norm<W, CANON_ENTRY, true>(x);
   fold_col<STRIDE>(x, t, f40);

@@ -9,12 +9,12 @@
 // site (both entries, the 73-limb product, and after each of the three
 // folds 73 -> 37, 37 -> 36, 36 -> 36), not the lane core's trimmed
 // schedule; `_kernel_chain` runs x = mul(x, b) R times on the entry-normed
-// operands.
+// operands, `_kernel` once.
 //
 // The tables are this library's own: ubench_mul.py hands its FOLDS [36,
 // 41] and TOPFM [3, 73] (the microbenchmark's, rebuilt from the round-2
-// constants) to lh_ubench_mul_init, which copies them into the constant
-// bank and, padded, into global memory (`g_prod`).
+// constants) to lh_ubench_mul_init, which copies them, padded, into global
+// memory (`g_prod`); neither kernel reads the constant bank.
 //
 // Bound on the H100: integer operations (per product 1,296 conv
 // multiply-adds, 1,476 fold multiply-adds and 3 x (73 + 37 + 36 + 36)
@@ -23,32 +23,39 @@
 // lane element, the limbs and the 73-limb accumulator in registers,
 // coalesced loads (neighbouring threads on neighbouring lanes).
 //
-// `k_ubench_mul` reads the tables from the constant bank (`BankTables`).
-// `k_ubench_mul_chain` reads them from the block's copy in shared memory
-// (`SharedTables`): a product walks all 5,904 B of FOLDS, more than the
-// SM's constant cache holds, so in the bank each warp stalled at issue on
-// its misses, and at 110,592 lanes and R = 40 the chain took 6.7x its
-// operations bound; from shared memory it takes 1.3x, and 0.27 device ms
-// at 4,096 lanes against 1.03 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
-// The grid holds at most the blocks that fit the card at once, and each
-// block walks the batch in steps of the grid, so a wide batch copies the
-// 7.2 KB once a resident block, not once every CHAIN_THREADS elements.
-// The chain keeps 253 registers a thread, so 8 warps fit an SM whatever
-// the block: 32, 64 and 128 threads a block time within 1.5 % of each
-// other at 4,096 and 110,592 lanes, 256 is 18 % slower at 4,096 (16
-// blocks, 16 SMs) and 4 % faster at 110,592, and a launch bound of 3
-// blocks of 128 caps the registers at 168 and spills (6 % slower): 128,
-// no bound (`python -m lighthouse_tpu_torch.tools.ubench_mul --sweep`,
-// which builds this file with other values through the macros below).
+// Both kernels run one body, `walk`: R products of each lane element
+// (`k_ubench_mul` with R = 1 fixed at compile time), the tables read from
+// the block's copy of `g_prod` in shared memory (`SharedTables`). A
+// product walks all 5,904 B of FOLDS, more than the SM's constant cache
+// holds, so from the bank each warp stalled at issue on its misses: at
+// 110,592 lanes the chain (R = 40) took 6.7x its operations bound and the
+// single product 0.100 device ms, 3.2x; from shared memory 1.3x and
+// 0.048, 1.55x (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6). The grid holds
+// at most the blocks that fit the card at once, and each block walks the
+// batch in steps of the grid, so a wide batch copies the 7.2 KB once a
+// resident block. A thread's first operands load before the table copy,
+// under its latency: 4 % off the single product at 110,592 against
+// loading them after it, 1-4 % against a loop rotated to load each next
+// pair early too. The single product keeps 255 registers a thread and the
+// chain 247, 0 B spills, so an SM holds 8 warps at 32, 64, 128 and 256
+// threads a block but 6 at 96 and 192. One launch shape for both, 128
+// threads and no launch bound: in a sweep of this body at 4,096 and
+// 110,592 lanes, 32, 64, 96, 192 and 256 a block are 3-28 % slower for
+// the single product at 110,592 and 1-20 % at 4,096; for the chain 32,
+// 64 and 256 are within 1 % at 110,592 (256 20 % slower at 4,096), 96
+// and 192 29-36 % slower there (96 0.2 % faster at 4,096); a launch
+// bound of 2 blocks moves either under 1 %. (`python -m
+// lighthouse_tpu_torch.tools.ubench_mul --sweep ...` builds this file
+// with other values through the macros below.)
 #include <climits>
 
 #include "fp_lane.cuh"
 
-#ifndef UB_CHAIN_THREADS
-#define UB_CHAIN_THREADS 128
+#ifndef UB_THREADS
+#define UB_THREADS 128
 #endif
-#ifndef UB_CHAIN_MIN_BLOCKS
-#define UB_CHAIN_MIN_BLOCKS 1
+#ifndef UB_MIN_BLOCKS
+#define UB_MIN_BLOCKS 1
 #endif
 
 namespace {
@@ -61,10 +68,10 @@ using lh::NFOLD;
 using lh::W;
 
 constexpr int PASSES = 3;
-constexpr int CHAIN_THREADS = UB_CHAIN_THREADS;
-constexpr int CHAIN_MIN_BLOCKS = UB_CHAIN_MIN_BLOCKS;
+constexpr int THREADS = UB_THREADS;
+constexpr int MIN_BLOCKS = UB_MIN_BLOCKS;
 
-// ------------------------------ the chain's tables in shared memory
+// ------------------------------------- the tables in shared memory
 // A copy laid out so that one output limb's k-loop (a FOLDS row) and one
 // carry pass (a TOPFM row) read consecutive 16-byte-aligned words, four
 // at a time, every thread of a warp the same address (a broadcast):
@@ -73,8 +80,8 @@ constexpr int CHAIN_MIN_BLOCKS = UB_CHAIN_MIN_BLOCKS;
 //   padded to TSTRIDE words; the pads are 0.
 //
 // The copy is read volatile where it is used: the entries are the same in
-// every product of a chain, and a compiler that sees that keeps them in
-// registers beside the limbs and spills.
+// every product of a chain and in the two entry norms, and a compiler that
+// sees that keeps them in registers beside the limbs and spills.
 constexpr int FSTRIDE = 44;
 constexpr int TSTRIDE = 76;
 constexpr int P_FOLDS = 0;
@@ -141,21 +148,9 @@ __device__ __forceinline__ void lds(const int* p, int off, int n, int* f) {
 #endif
 }
 
-// Where the product reads FOLDS and TOPFM. `BankTables`: the constant bank
-// (fp_lane.cuh c_folds, c_topfm, through lh::norm and lh::fold).
-struct BankTables {
-  template <int N, int P>
-  __device__ __forceinline__ void norm(int* x) const {
-    lh::norm<N, P>(x);
-  }
-  template <int N, int OFF>
-  __device__ __forceinline__ void fold(const int* x, int* out) const {
-    lh::fold<N, OFF>(x, out);
-  }
-};
-
-// `SharedTables`: the block's copy at `t` (block_prod_tables), the same
-// arithmetic in the same order as lh::norm1 and lh::fold.
+// FOLDS and TOPFM read from the block's copy at `t` (block_prod_tables),
+// the same arithmetic in the same order as fp_lane.cuh's lh::norm1 and
+// lh::fold.
 struct SharedTables {
   const int* t;
 
@@ -206,75 +201,94 @@ struct SharedTables {
 
 // ------------------------------------------------------------ kernels
 
-// the blocks of k_ubench_mul_chain that fit the card at once
-// (lh_ubench_mul_init)
+// the blocks of each kernel that fit the card at once (lh_ubench_mul_init)
+int g_mul_grid = 0;
 int g_chain_grid = 0;
 
-// the microbenchmark's `_mul_body` on entry-normed operands, the tables
-// read through `tab`; out may alias a
-template <class Tab>
-__device__ __forceinline__ void ub_mul(int* out, const int* a, const int* b, const Tab& tab) {
+// the microbenchmark's `_mul_body` on entry-normed operands; out may
+// alias a
+__device__ __forceinline__ void ub_mul(int* out, const int* a, const int* b,
+                                       const SharedTables& tab) {
   int wide[CONVW];
   lh::conv(a, b, wide);
-  tab.template norm<CONVW, PASSES>(wide);
+  tab.norm<CONVW, PASSES>(wide);
   int x37[37];
-  tab.template fold<CONVW, 0>(wide, x37);
+  tab.fold<CONVW, 0>(wide, x37);
   x37[36] = 0;
-  tab.template norm<37, PASSES>(x37);
+  tab.norm<37, PASSES>(x37);
   int x36[W];
-  tab.template fold<37, 38>(x37, x36);
-  tab.template norm<W, PASSES>(x36);
-  tab.template fold<W, 40>(x36, out);
-  tab.template norm<W, PASSES>(out);
+  tab.fold<37, 38>(x37, x36);
+  tab.norm<W, PASSES>(x36);
+  tab.fold<W, 40>(x36, out);
+  tab.norm<W, PASSES>(out);
 }
 
-// element `base` of the batch: both operands loaded and normed, then R
-// products x <- x b
-template <class Tab>
-__device__ __forceinline__ void chain_elem(const int* __restrict__ a, const int* __restrict__ b,
-                                           int* __restrict__ out, int R, long base, int S,
-                                           const Tab& tab) {
+// The n = K * S lane elements, THREADS a block, the block's threads
+// stepping by the grid's: each element's operands normed, then R products
+// x <- x b. A thread's first operands are loaded before the table copy,
+// their latency under the copy's.
+__device__ __forceinline__ void walk(const int* __restrict__ a, const int* __restrict__ b,
+                                     int* __restrict__ out, int R, int n, int S) {
+  const int first = blockIdx.x * THREADS + threadIdx.x;
   int x[W], y[W];
-  lh::load_elem(x, a, base, S);
-  lh::load_elem(y, b, base, S);
-  tab.template norm<W, PASSES>(x);
-  tab.template norm<W, PASSES>(y);
+  if (first < n) {
+    const int k = first / S, s = first - k * S;
+    const long base = (long)k * W * S + s;
+    lh::load_elem(x, a, base, S);
+    lh::load_elem(y, b, base, S);
+  }
+  const SharedTables tab{block_prod_tables()};
+  for (int i = first; i < n; i += gridDim.x * THREADS) {
+    const int k = i / S, s = i - k * S;
+    const long base = (long)k * W * S + s;
+    if (i != first) {
+      lh::load_elem(x, a, base, S);
+      lh::load_elem(y, b, base, S);
+    }
+    tab.norm<W, PASSES>(x);
+    tab.norm<W, PASSES>(y);
 #pragma unroll 1
-  for (int r = 0; r < R; ++r) ub_mul(x, x, y, tab);
-  lh::store_elem(out, x, base, S);
+    for (int r = 0; r < R; ++r) ub_mul(x, x, y, tab);
+    lh::store_elem(out, x, base, S);
+  }
 }
 
-__global__ void __launch_bounds__(lh::THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     k_ubench_mul(const int* __restrict__ a, const int* __restrict__ b,
-                 int* __restrict__ out, int K, int S) {
-  long base;
-  if (!lh::elem_index(K, S, &base)) return;
-  chain_elem(a, b, out, 1, base, S, BankTables{});
+                 int* __restrict__ out, int n, int S) {
+  walk(a, b, out, 1, n, S);
 }
 
-__global__ void __launch_bounds__(CHAIN_THREADS, CHAIN_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     k_ubench_mul_chain(const int* __restrict__ a, const int* __restrict__ b,
                        int* __restrict__ out, int R, int n, int S) {
-  const SharedTables tab{block_prod_tables()};
-  for (int i = blockIdx.x * CHAIN_THREADS + threadIdx.x; i < n; i += gridDim.x * CHAIN_THREADS) {
-    const int k = i / S, s = i - k * S;
-    chain_elem(a, b, out, R, (long)k * W * S + s, S, tab);
-  }
+  walk(a, b, out, R, n, S);
+}
+
+// the blocks of `kernel`, THREADS a block, that fit the card at once
+// into *grid
+template <class Kernel>
+int size_grid(Kernel kernel, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (!e) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  if (!e) *grid = sms * per_sm;
+  return e;
+}
+
+// blocks for n lane elements, THREADS a block, at most `grid`
+unsigned blocks(long n, int grid) {
+  const long b = (n + THREADS - 1) / THREADS;
+  return (unsigned)(b < grid ? b : grid);
 }
 
 }  // namespace
 
 LH_EXPORT int lh_ubench_mul_init(const void* folds, const void* topfm) {
-  int e = lh::copy_consts(folds, topfm);
-  if (!e) e = copy_prod_tables(folds, topfm);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (!e) e = (int)cudaGetDevice(&dev);
-  if (!e) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!e) {
-    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_ubench_mul_chain,
-                                                           CHAIN_THREADS, 0);
-  }
-  if (!e) g_chain_grid = sms * per_sm;
+  int e = copy_prod_tables(folds, topfm);
+  if (!e) e = size_grid(k_ubench_mul, &g_mul_grid);
+  if (!e) e = size_grid(k_ubench_mul_chain, &g_chain_grid);
   return e;
 }
 
@@ -282,21 +296,21 @@ LH_EXPORT const char* lh_ubench_mul_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
+// n = K * S lane elements; n plus a grid's threads stays an int
 LH_EXPORT int lh_ubench_mul(const void* a, const void* b, void* out, int K,
                             int S, void* stream) {
-  k_ubench_mul<<<lh::blocks_for(K, S), lh::THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)b, (int*)out, K, S);
+  const long n = (long)K * S;
+  if (n > INT_MAX / 2 || g_mul_grid <= 0) return (int)cudaErrorInvalidValue;
+  k_ubench_mul<<<blocks(n, g_mul_grid), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, (int*)out, (int)n, S);
   return (int)cudaGetLastError();
 }
 
-// n = K * S lane elements; n plus a grid's threads stays an int
 LH_EXPORT int lh_ubench_mul_chain(const void* a, const void* b, void* out,
                                   int R, int K, int S, void* stream) {
   const long n = (long)K * S;
   if (n > INT_MAX / 2 || g_chain_grid <= 0) return (int)cudaErrorInvalidValue;
-  const long want = (n + CHAIN_THREADS - 1) / CHAIN_THREADS;
-  k_ubench_mul_chain<<<(unsigned)(want < g_chain_grid ? want : g_chain_grid), CHAIN_THREADS,
-                       0, (cudaStream_t)stream>>>((const int*)a, (const int*)b, (int*)out, R,
-                                                  (int)n, S);
+  k_ubench_mul_chain<<<blocks(n, g_chain_grid), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, (int*)out, R, (int)n, S);
   return (int)cudaGetLastError();
 }

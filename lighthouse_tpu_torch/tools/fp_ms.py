@@ -1,14 +1,17 @@
 """Device time of `canonical`, `reduce_light` and `sqr` a launch, at the
-widths a BLS verify runs them, and of the microbenchmark's chained product
-`ubench_mul_chain` at R = 40.
+widths a BLS verify runs them; of the microbenchmark's single product
+`ubench_mul` and chained product `ubench_mul_chain` (R = 40), and of the
+lane baseline's `norm3`, at 4,096 lanes and the microbenchmark's 110,592;
+and of `canon_reduce`, which no path launches, at 1 and 4,096 lanes.
 
 One JSON line a kernel and width, with the card's `nvidia-smi` name and
 power limit; device ms from the profiler (the median of 4 traces of 20
 launches, tools/ladder_ms.py's trace), after the kernel's output, through
-`fp.canonical_op`, `fp.reduce_light`, `fp.sqr` and `ubench_mul.mul_chain`,
-is held torch.equal to the plain body on the same seeded operands (the
-chain's, the microbenchmark's 8 tiled elements). Run on a machine with a
-CUDA card:
+its entry point (OPS), is held torch.equal to the plain body on the same
+seeded operands (the microbenchmark's kernels', its 8 tiled elements);
+`norm3`'s also cold (`cold_device_ms`: the L2 cleared by a write of 256
+MiB before each launch, outside the kernel's own device time).
+Run on a machine with a CUDA card:
 
     python -m lighthouse_tpu_torch.tools.fp_ms [kernel ...]
 
@@ -34,29 +37,39 @@ from .ladder_ms import REPS, _device_time, _trace, card
 # the widths a bucket-1024 verify runs each at, as (K, S) stacks, the
 # recorded pairing layout of 6 x 4,096 lane elements for reduce_light,
 # sqr's one launch a verify at buckets 128 and 1024 (and one lane, and
-# 4,096), and the chain at 4,096 lanes and the microbenchmark's 110,592
+# 4,096); the microbenchmark's kernels and norm3 at 4,096 lanes and the
+# microbenchmark's 110,592 (norm3 also at one lane: a launch's floor);
+# canon_reduce at one lane and 4,096
 WIDTHS = {
     "canonical": [(1, 1), (2, 1), (2, 1024), (8, 2048)],
     "reduce_light": [(2, 2048), (6, 1), (1, 4097), (6, 4096)],
     "sqr": [(1, 1), (1, 128), (1, 1024), (1, 4096)],
     "ubench_mul_chain": [(1, 4096), (1, U.S_DEFAULT)],
+    "ubench_mul": [(1, 4096), (1, U.S_DEFAULT)],
+    "norm3": [(1, 1), (1, 4096), (1, U.S_DEFAULT)],
+    "canon_reduce": [(1, 1), (1, 4096)],
 }
 CHAIN_R = U.R_DEFAULT
+# kernels bound by their bytes whose input the 50 MB L2 holds between
+# launches: also timed cold, a write of L2_FLUSH_BYTES before each launch
+COLD = ("norm3",)
+L2_FLUSH_BYTES = 256 << 20
 
 
 def operands(name: str, K: int, S: int, seed: int = 19) -> list:
-    """Seeded operands [K, W, S]: canonical's a difference of two standard
-    elements (eq_zero's), reduce_light's and sqr's a sum of three, signs
-    mixed; the chain's the microbenchmark's, and R."""
-    if name == "ubench_mul_chain":
+    """Seeded operands [K, W, S]: canonical's and canon_reduce's a
+    difference of two standard elements (eq_zero's), reduce_light's, sqr's
+    and norm3's a sum of three, signs mixed; the microbenchmark's kernels'
+    its own (and the chain's R)."""
+    if name.startswith("ubench"):
         _, _, a, b = U.operands(S, "cuda")
-        return [a, b, CHAIN_R]
+        return [a, b] + ([CHAIN_R] if name == "ubench_mul_chain" else [])
     rng = np.random.default_rng(seed)
 
     def std():
         return rng.integers(0, 1 << fp.B, (K, fp.W, S), dtype=np.int32)
 
-    a = std() - std() if name == "canonical" else std() + std() - std()
+    a = std() - std() if name in ("canonical", "canon_reduce") else std() + std() - std()
     return [torch.from_numpy(a).cuda()]
 
 
@@ -79,7 +92,8 @@ def launch_turns(pattern: str, fn, traces: int = 4) -> list:
 
 
 OPS = {"canonical": fp.canonical_op, "reduce_light": fp.reduce_light, "sqr": fp.sqr,
-       "ubench_mul_chain": U.mul_chain}
+       "ubench_mul_chain": U.mul_chain, "ubench_mul": U.mul, "norm3": fp.norm3,
+       "canon_reduce": fp.canon_reduce}
 
 
 def library(names=tuple(OPS), out=print) -> list:
@@ -95,6 +109,10 @@ def library(names=tuple(OPS), out=print) -> list:
                              **({"R": CHAIN_R} if name == "ubench_mul_chain" else {}),
                              device_ms=statistics.median(turns), device_ms_turns=turns,
                              equal_to_plain_body=True, card=card()))
+            if name in COLD:
+                flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+                cold = launch_turns(rf"\bk_{name}\b", lambda: (flush.fill_(0), op(*args)))
+                rows[-1].update(cold_device_ms=statistics.median(cold), cold_device_ms_turns=cold)
             out(json.dumps(rows[-1]))
     return rows
 

@@ -3,12 +3,12 @@ reference's tools/ubench_pallas.py.
 
 Two hand-written CUDA kernels (csrc/ubench_mul.cu) over the round-2 product
 in the [36, S] layout, with a 3-pass carry normalization at every site:
-`mul` normalizes both operands and takes one product per launch, its
-tables in the constant bank; `mul_chain` normalizes both and takes R
-chained products x <- x b in one launch, R a kernel argument, its tables
-in the block's shared memory. Beside them, the lane baseline: the Fp core's
-`norm3` on both operands, then R launches of the lane `mul`
-(ops/lane/fp.py). The chain against the baseline says what R products in
+`mul` normalizes both operands and takes one product per launch;
+`mul_chain` normalizes both and takes R chained products x <- x b in one
+launch, R a kernel argument. Both run one body, a thread an element, the
+tables read from the block's copy in shared memory. Beside them, the lane
+baseline: the Fp core's `norm3` on both operands, then R launches of the
+lane `mul` (ops/lane/fp.py). The chain against the baseline says what R products in
 one launch save against R launches.
 
 Run on a machine with a CUDA card (the kernels build at first use):
@@ -23,11 +23,12 @@ plain PyTorch versions (use a small S).
 
     python -m lighthouse_tpu_torch.tools.ubench_mul --sweep 64:1 128:2 --S 4096 110592
 
-times the chain's launch shapes instead: csrc/ubench_mul.cu built once a
-THREADS:MIN_BLOCKS pair (threads a block, the launch bound's minimum
-blocks an SM), all builds in parallel, each held torch.equal to the plain
-body at each S, then timed in turns (a b b a, the profiler's device ms),
-one JSON line a pair and S with its ptxas line and the card.
+times the kernels' launch shape instead: csrc/ubench_mul.cu built once a
+THREADS:MIN_BLOCKS pair (threads a block and the launch bound's minimum
+blocks an SM, UB_THREADS and UB_MIN_BLOCKS, the same for both kernels),
+all builds in parallel, each kernel held torch.equal to its plain body at
+each S, then timed in turns (a b b a, the profiler's device ms), one JSON
+line a kernel, pair and S with its ptxas line and the card.
 """
 
 from __future__ import annotations
@@ -309,20 +310,20 @@ def run(S: int = S_DEFAULT, R: int = R_DEFAULT, device=None, out=print) -> dict:
 
 def build_variants(shapes) -> dict:
     """csrc/ubench_mul.cu built once a (threads, min_blocks) pair, with
-    UB_CHAIN_THREADS and UB_CHAIN_MIN_BLOCKS set, each in a directory of
-    its own beside the kernels' build, all nvcc runs started together;
-    returns pair -> (directory, ptxas log)."""
+    UB_THREADS and UB_MIN_BLOCKS set (both kernels' launch shape), each in
+    a directory of its own beside the kernels' build, all nvcc runs
+    started together; returns pair -> (directory, ptxas log)."""
     base = kernels.build_dir()
     jobs = {}
     for t, m in shapes:
-        out = base / f"ubench_chain_{t}x{m}"
+        out = base / f"ubench_{t}x{m}"
         out.mkdir(parents=True, exist_ok=True)
         so = out / "libubench_mul.so"
         if so.exists():
             jobs[t, m] = (None, out)
             continue
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-DUB_CHAIN_THREADS={t}",
-               f"-DUB_CHAIN_MIN_BLOCKS={m}", "-o", str(so), str(kernels.CSRC / "ubench_mul.cu")]
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-DUB_THREADS={t}",
+               f"-DUB_MIN_BLOCKS={m}", "-o", str(so), str(kernels.CSRC / "ubench_mul.cu")]
         jobs[t, m] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), out)
     built = {}
@@ -336,19 +337,20 @@ def build_variants(shapes) -> dict:
     return built
 
 
-def chain_ptxas(log: str) -> list:
-    """k_ubench_mul_chain's lines of a ptxas -v log: its stack frame and
-    spills, its registers and shared memory."""
+def kernel_ptxas(log: str) -> dict:
+    """Each kernel's lines of a ptxas -v log, by its counter's name: its
+    stack frame and spills, its registers and shared memory."""
     lines = log.splitlines()
-    return [lines[i + j].split(":", 1)[-1].strip() for i, line in enumerate(lines)
-            if "Function properties for" in line and "k_ubench_mul_chain" in line
-            for j in (1, 2) if i + j < len(lines)]
+    return {(mul_chain if "k_ubench_mul_chain" in line else mul).name:
+            [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 3]]
+            for i, line in enumerate(lines)
+            if "Function properties for" in line and "k_ubench_mul" in line}
 
 
 def sweep(shapes, widths, R: int = R_DEFAULT, out=print) -> list:
-    """The chain at each (threads, min_blocks) of `shapes` and each S of
-    `widths`: held torch.equal to the plain body, then the profiler's
-    device ms of a launch in 4 turns a b b a."""
+    """Both kernels (the chain at R) at each (threads, min_blocks) of
+    `shapes` and each S of `widths`: held torch.equal to the plain body,
+    then the profiler's device ms of a launch in 4 turns a b b a."""
     from .fp_ms import launch_turns
     from .ladder_ms import card
 
@@ -357,24 +359,25 @@ def sweep(shapes, widths, R: int = R_DEFAULT, out=print) -> list:
     rows = []
     for S in widths:
         _, _, A, Bm = operands(S, "cuda")
-        want = mul_chain.plain(A, Bm, R)
-        for pair, lib in libs.items():
-            if not torch.equal(_launch(lib, "lh_ubench_mul_chain", A, Bm, (R,), 1, S), want):
-                raise AssertionError(f"the chain at {pair}, S={S}: kernel != plain body")
-        turns = {pair: [] for pair in libs}
-        order = list(libs)
-        for turn in range(4):
-            for pair in (order if turn % 2 == 0 else order[::-1]):
-                turns[pair] += launch_turns(
-                    r"\bk_ubench_mul_chain\b",
-                    lambda: _launch(libs[pair], "lh_ubench_mul_chain", A, Bm, (R,), 1, S),
-                    traces=1)
-        for (t, m), ms in turns.items():
-            rows.append(dict(tool="ubench_mul --sweep", threads=t, min_blocks=m, S=S, R=R,
-                             device_ms=float(np.median(ms)), device_ms_turns=ms,
-                             ptxas=chain_ptxas(built[t, m][1]), equal_to_plain_body=True,
-                             card=card()))
-            out(json.dumps(rows[-1]))
+        for op, rounds in ((mul, ()), (mul_chain, (R,))):
+            want = op.plain(A, Bm, *rounds)
+            for pair, lib in libs.items():
+                if not torch.equal(_launch(lib, op.symbol, A, Bm, rounds, 1, S), want):
+                    raise AssertionError(f"{op.name} at {pair}, S={S}: kernel != plain body")
+            turns = {pair: [] for pair in libs}
+            order = list(libs)
+            for turn in range(4):
+                for pair in (order if turn % 2 == 0 else order[::-1]):
+                    turns[pair] += launch_turns(
+                        rf"\bk_{op.name}\b",
+                        lambda: _launch(libs[pair], op.symbol, A, Bm, rounds, 1, S), traces=1)
+            for (t, m), ms in turns.items():
+                rows.append(dict(tool="ubench_mul --sweep", kernel=op.name, threads=t,
+                                 min_blocks=m, S=S, **({"R": R} if rounds else {}),
+                                 device_ms=float(np.median(ms)), device_ms_turns=ms,
+                                 ptxas=kernel_ptxas(built[t, m][1])[op.name],
+                                 equal_to_plain_body=True, card=card()))
+                out(json.dumps(rows[-1]))
     return rows
 
 
@@ -384,7 +387,7 @@ def main(argv=None) -> int:
     ap.add_argument("R", type=int, nargs="?", default=R_DEFAULT, help="chained products")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--sweep", nargs="+", metavar="THREADS:MIN_BLOCKS",
-                    help="time the chain's launch shapes instead")
+                    help="time the kernels' launch shapes instead")
     ap.add_argument("--S", dest="widths", type=int, nargs="+", default=[4096, S_DEFAULT],
                     help="the sweep's lanes")
     args = ap.parse_args(argv)

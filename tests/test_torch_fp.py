@@ -251,6 +251,69 @@ def test_norm3_plain_body_equals_reference(shape):
     assert not port.LAUNCHES and not port.PLAIN_CUDA_CALLS
 
 
+def _header_constants(text):
+    """The `constexpr int NAME = EXPR;` integers of a CUDA source, each
+    EXPR evaluated over the ones before it (C's `/` on ints is `//`)."""
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        try:
+            env[name] = int(eval(expr.replace("/", "//"), {}, dict(env)))
+        except NameError:
+            pass
+    return env
+
+
+@pytest.mark.parametrize("shape", [(36, 8), (2, 36, 4)])
+def test_canon_reduce_model_over_the_blocks_packed_column(shape):
+    """csrc/fp_lane.cuh's `g_short` image (KP | PK_LADDER | FOLDS column
+    40 | TOPFM's row for 36 limbs, padded to whole int4s) laid out from the
+    header's constants. `k_canon_reduce` (csrc/fp_canon.cu) copies its
+    words [T_F40, T_TF) into the block and runs `canon_reduce_body<1>` over
+    them: a numpy model of that body (open carry passes at the canon.*
+    depths, four folds through the packed column) equals the plain body on
+    seeded operands."""
+    csrc = Path(port.__file__).resolve().parents[2] / "csrc"
+    k = _header_constants((csrc / "fp_lane.cuh").read_text())
+    assert (k["T_KP"], k["T_LADDER"], k["T_F40"], k["T_TF"], k["T_WORDS"]) == (0, 37, 296, 332, 368)
+    assert k["T_F40"] % 4 == 0 and k["T_TF"] % 4 == 0
+    img = np.zeros(k["T_WORDS"], np.int64)
+    img[k["T_KP"] : k["T_LADDER"]] = port.KP_37
+    img[k["T_LADDER"] : k["T_F40"]] = port.PK_LADDER.reshape(-1)
+    img[k["T_F40"] : k["T_TF"]] = port.FOLDS_NP[:, 40]
+    img[k["T_TF"] : k["T_TF"] + port.W] = port.TOPFM_NP[2, : port.W]
+    src = re.sub(r"//[^\n]*", "", (csrc / "fp_canon.cu").read_text())
+    body = src[src.index("k_canon_reduce(") : src.index("k_canonical(")]
+    assert "lh::block_tables<lh::T_F40, lh::T_TF>()" in body
+    assert "lh::canon_reduce_body<1>(v, f40)" in body
+    f40 = img[k["T_F40"] : k["T_TF"]]  # the block's copy, stride 1
+
+    def open_pass(x):  # norm1_open
+        out = x & port.MASK
+        out[1:] += x[:-1] >> port.B
+        out[-1] += (x[-1] >> port.B) << port.B
+        return out
+
+    def fold(x):  # fold_col<1>
+        out = np.zeros_like(x)
+        out[: port.FOLD_AT] = x[: port.FOLD_AT]
+        return out + f40[:, None] * x[port.FOLD_AT]
+
+    rng = np.random.default_rng(zlib.crc32(f"canon_reduce{shape}".encode()))
+    x = lazy(rng, shape, terms=2)
+    flat = x.reshape(-1, port.W, shape[-1])
+    got = []
+    for v in flat.astype(np.int64):
+        for _ in range(port._SCHED["canon.entry"]):
+            v = open_pass(v)
+        for site in ("canon.fold_a", "canon.fold_b", "canon.fold_c", "canon.fold_d"):
+            v = fold(v)
+            for _ in range(port._SCHED[site]):
+                v = open_pass(v)
+        got.append(v)
+    want = port.canon_reduce(torch.from_numpy(x)).numpy()
+    assert np.array_equal(np.stack(got).reshape(shape), want)
+
+
 def test_batch_inv_equals_reference():
     """K = 3 slots of S = 4 lanes, one slot zero on one lane: the
     reference's limbs, and the inverses (zero for zero) as Python ints."""

@@ -169,3 +169,34 @@ def test_chain_table_image_and_padded_fold():
     # as an int2, a 1-entry row as a word; a pass over 73, 37 and 36 limbs
     # reads 18, 9 and 9 int4s, the first two and a word
     assert widths == {"int4": 36 * 9 + 18 + 9 + 9, "int2": 36 + 36, "word": 36 + 2}
+
+
+def test_both_kernels_read_the_one_shared_table_image():
+    """csrc/ubench_mul.cu: `g_prod` is the library's only table image,
+    copied into each block's shared memory, and no kernel reads the
+    constant bank."""
+    src = (Path(U.__file__).resolve().parents[1] / "csrc" / "ubench_mul.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    for bank in ("BankTables", "c_folds", "c_topfm", "copy_consts"):
+        assert bank not in code
+    assert re.findall(r"__device__ __align__\(16\) int (\w+)\[", code) == ["g_prod"]
+
+
+def test_sweep_reads_each_kernels_own_ptxas_lines():
+    """A ptxas -v log names both kernels mangled, k_ubench_mul a prefix of
+    k_ubench_mul_chain: the sweep keeps each kernel's own two lines."""
+    ns = "_ZN46_GLOBAL__N__f4092043_13_ubench_mul_cu_b4aeec8e"
+    log = "\n".join([
+        "ptxas info    : 8720 bytes gmem",
+        f"ptxas info    : Function properties for {ns}18k_ubench_mul_chainEPKiS1_Piiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 253 registers, used 1 barriers, 7248 bytes smem",
+        f"ptxas info    : Function properties for {ns}12k_ubench_mulEPKiS1_Piii",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 7248 bytes smem",
+    ])
+    assert U.kernel_ptxas(log) == {
+        "ubench_mul_chain": ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                             "Used 253 registers, used 1 barriers, 7248 bytes smem"],
+        "ubench_mul": ["8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+                       "Used 168 registers, used 1 barriers, 7248 bytes smem"]}
