@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: its KZG slice, its main path
-(BLS batch signature verification) and the paths of the last six TPU
+(BLS batch signature verification), the paths of the last six TPU
 kernels (the per-lane ladders, the unfused Miller doubling, the Fp-product
-microbenchmark), holding every kernel against its plain PyTorch version.
+microbenchmark) and a 1M-validator state's roots and epoch pass, holding
+every kernel against its plain PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit (nvcc):
@@ -14,7 +15,7 @@ needs one card. Phases, each with its seconds; any failure raises and exits
 non-zero before the last line:
 
 1. card: the `nvidia-smi --query-gpu=name,power.limit` line.
-2. build: the eleven CUDA libraries from csrc/ (one nvcc each, in
+2. build: the thirteen CUDA libraries from csrc/ (one nvcc each, in
    parallel), with ptxas' registers / stack frame / spill bytes per
    function; for the twenty-three cooperative kernels (csrc/coop.cuh:
    miller_dbl_iter, miller_add_iter, cyc_sqr, jac_dbl_f1, jac_add_f1,
@@ -151,11 +152,31 @@ non-zero before the last line:
    cleared before each launch), then its
    ms per launch and per element-product (lighthouse_tpu_torch.tools.
    ubench_mul.run), there and at 1,024 lanes.
-8. the `kernels` JSON line (launches: the BLS main path's for its kernels,
-   slice 4's paths' for theirs, 0 for canon_reduce and jac_add_f1, which
-   no path launches; launches_kzg: phase 5's; launches_slice4:
-   phase 7's; row 23 of the TPU-kernel table is two entries,
-   ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
+8. state: a registry of 2^20 - 5 validators from a seed (a real state's
+   column shapes; a count whose trees meet layers of odd width) packed on the host into big-endian chunk words and
+   copied to the card; then, the counters zeroed just before and read
+   just after, its cold roots through ops/lane/merkle.py (the pubkeys'
+   2-chunk trees, the Validators' 8-field trees, the registry's tree to
+   2^40 with the length mixed in, balances' and inactivity_scores' trees:
+   60 launches of k_sha256_pairs, one a level with more than one node)
+   and one epoch pass (k_epoch_updates); 1,024 sampled element roots
+   against hashlib, the registry's upper tree over the device's element
+   roots and both lists' roots against a host merkleize; host-pack s,
+   host-to-device s, device ms counted once (`device_totals`), launches,
+   compressions and their operations bound, each on a line of its own;
+   k_sha256_pairs against its plain body at 1, 261 and 32,768 seeded nodes
+   and on the path's operands at its pubkey level (a pair a validator) and
+   its widest level (the element trees' first, 4 pairs a validator, read
+   in place), in device ms and bound at each; k_epoch_updates against its
+   plain body on every validator with the leak off, on and do_deltas
+   false, in device ms warm and with the L2 cleared; the numpy entries
+   compress_pairs and epoch_updates on the card against the tensor
+   entries, in call ms beside the epoch pass's plain body on the host.
+9. the `kernels` JSON line (launches: the BLS main path's for its kernels,
+   slice 4's paths' and phase 8's for theirs, 0 for canon_reduce and
+   jac_add_f1, which no path launches; launches_kzg: phase 5's;
+   launches_slice4: phase 7's; launches_state: phase 8's; row 23 of the
+   TPU-kernel table is two entries, ubench_mul and ubench_mul_chain; `ptxas`: each kernel's registers,
    stack, spills and static shared memory; `launch_smem`: the cooperative
    kernels' dynamic shared memory, as each library reports it; the
    cooperative kernels' device ms and bound at S = 1, 2 and 1024,
@@ -164,12 +185,15 @@ non-zero before the last line:
    at 1, 128 and 1024 (not 2), the ladder steps' also with every bit set,
    and the latency floor at S = 1; the ladder steps' device ms over phase
    7's 64 launches; the microbenchmark's two kernels' and norm3's device
-   ms and bound at 4096 and 110592, norm3's also cold);
-   9. the `ok` JSON line (last).
+   ms and bound at 4096 and 110592, norm3's also cold; k_sha256_pairs'
+   device ms and bound at each node count held, k_epoch_updates' warm
+   and cold);
+10. the `ok` JSON line (last).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -236,6 +260,11 @@ KERNELS = {
     # hash-to-G2's ratio chain in one launch: the chain of `f2sqr` and
     # `f2mul` (tower.py:217-218) that htc.ratio_chain launched op by op
     "ratio_chain": (CSRC + "htc.cu", "lighthouse_tpu/ops/lane/htc.py:98"),
+    # the two programs the reference jits outside Pallas: state hashing's
+    # merkle-node compression (on its device) and the fused epoch pass
+    # (pinned to its host's CPU)
+    "sha256_pairs": (CSRC + "sha256.cu", "lighthouse_tpu/ops/lane/sha256.py:150"),
+    "epoch_updates": (CSRC + "epoch.cu", "lighthouse_tpu/ops/epoch.py:83"),
 }
 # the kernels of the KZG path (slices 1, 2, 7, 11 and 13), of the BLS main
 # path (slices 1-3, 7, 9, 11 and 13) and of slice 4's paths (the ladders,
@@ -262,7 +291,9 @@ FUSED = {"canon_reduce": "canonical"}
 # those into one add_exact_f1 launch per G1 exact add
 EXACT_ADD = {"jac_add_f1": 1, "sqr": 2, "mul": 6, "canon_reduce": 2, "jac_dbl_f1": 1}
 OFF_PATH = (*FUSED, "jac_add_f1")
-assert sorted(BLS_KERNELS + SLICE4_KERNELS + OFF_PATH) == sorted(KERNELS)
+# phase 8's path: a 1M-validator state's roots and its epoch pass
+STATE_KERNELS = ("sha256_pairs", "epoch_updates")
+assert sorted(BLS_KERNELS + SLICE4_KERNELS + OFF_PATH + STATE_KERNELS) == sorted(KERNELS)
 SEEDED = ("mul", "sqr", "canon_reduce", "jac_dbl_f1", "jac_add_f1", "add_exact_f1")
 # the inversions, held on seeded operands at SHAPES and CHAIN_S
 CHAIN_KERNELS = ("inv_w4", "inv_bin")
@@ -592,7 +623,9 @@ def _rows(name: str) -> int:
 
 
 def _op(name: str):
+    from lighthouse_tpu_torch.ops import epoch
     from lighthouse_tpu_torch.ops.lane import chains, fp, htc, jacobian as J, pairing as OP, tower
+    from lighthouse_tpu_torch.ops.lane import sha256
     from lighthouse_tpu_torch.tools import ubench_mul as U
 
     return {
@@ -609,6 +642,7 @@ def _op(name: str):
         "ladder_step_f1": J._ladder_step_f1, "ladder_step_f2": J._ladder_step_f2,
         "ubench_mul": U.mul, "ubench_mul_chain": U.mul_chain,
         "inv_w4": chains.inv_w4, "inv_bin": fp.inv_bin, "ratio_chain": htc.ratio_chain_op,
+        "sha256_pairs": sha256.digest_pairs, "epoch_updates": epoch.updates,
     }[name]
 
 
@@ -1453,17 +1487,47 @@ def device_totals(events) -> dict:
                 glue_ms=total - sum(ours.values()), kernels_ms=ours)
 
 
-def _profiled(fn):
-    """The profiler's key averages of one call of fn (after one call
-    unprofiled), for `device_totals`."""
-    from torch.profiler import ProfilerActivity, profile
+def _profiled(fn, want: dict | None = None) -> tuple:
+    """The device-side events of one profiled call of fn (after one call
+    unprofiled), for `device_totals`. The unprofiled call's launches (the
+    counters' difference) must equal `want` where it is given, and the
+    trace must hold as many of each k_* kernel: late in this script a
+    trace has dropped its first launches (2-3 of the state path's 60), so
+    8 small launches open it, only the events that start inside a range
+    around the call count, and a trace short of a launch is taken again,
+    up to four times. Returns (the events, or None where no try held
+    every launch; the tries)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from lighthouse_tpu_torch.ops.lane import fp
+
+    before = dict(fp.LAUNCHES)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return prof.key_averages()
+    got = {k: v - before.get(k, 0) for k, v in fp.LAUNCHES.items() if v != before.get(k, 0)}
+    if want is not None and got != want:
+        raise AssertionError(f"profiled call: launches {got}, expected {want}")
+    pad = torch.zeros(1 << 10, device=DEVICE)
+    torch.cuda.synchronize()
+    for t in range(1, 5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            with record_function("measured_call"):
+                fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = next(e for e in events if e.name == "measured_call").time_range.start
+        # the range's own annotation shows on the device side too: not work
+        mine = [e for e in _device_side(events)
+                if e.time_range.start >= start and e.name != "measured_call"]
+        held = {k: sum(bool(re.search(rf"\bk_{k}\b", e.key)) for e in mine) for k in got}
+        if held == got:
+            return mine, t
+        say("trace", attempt=t, launches=json.dumps(got, separators=(",", ":")),
+            held=json.dumps(held, separators=(",", ":")))
+    return None, t
 
 
 def _device_side(events) -> list:
@@ -1931,7 +1995,7 @@ def phase_bls(card: str) -> tuple:
     return out, launches
 
 
-def _window(label: str, want: dict, fn):
+def _window(label: str, want: dict, fn, phase: str = "ladders"):
     """Run fn() with the launch counters zeroed just before and read just
     after; the counts must equal `want`, with no plain body on a CUDA
     tensor. Returns (fn's result, wall s)."""
@@ -1948,7 +2012,7 @@ def _window(label: str, want: dict, fn):
         raise AssertionError(f"{label}: launches {got}, expected {want}")
     if plain:
         raise AssertionError(f"{label}: plain bodies ran on CUDA tensors: {plain}")
-    say("ladders", path=label, launches=json.dumps(got, separators=(",", ":")),
+    say(phase, path=label, launches=json.dumps(got, separators=(",", ":")),
         plain_body_calls_on_cuda=0)
     return res, wall
 
@@ -1959,6 +2023,26 @@ def _wall(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t
+
+
+def _totals(fn, want: dict | None = None) -> dict | None:
+    """`device_totals` of one call of fn, every launch held (`_profiled`),
+    or None where no trace held them all."""
+    events, _ = _profiled(fn, want)
+    return device_totals(events) if events is not None else None
+
+
+def _kernel_share(tot: dict | None, name: str):
+    return tot["kernels_ms"].get(f"k_{name}") if tot is not None else None
+
+
+def _device_fields(device: dict) -> dict:
+    """Each run's device ms, and its kernels', for a `say` line."""
+    return {**{k: f"{v['device_ms']:.4f}" if v is not None else "not_measured(no whole trace)"
+               for k, v in device.items()},
+            "kernels_device_ms": json.dumps(
+                {k: {n: round(ms, 4) for n, ms in v["kernels_ms"].items()}
+                 for k, v in device.items() if v is not None}, separators=(",", ":"))}
 
 
 def _ladders_1024(card: str, out: dict) -> dict:
@@ -2017,9 +2101,12 @@ def _ladders_1024(card: str, out: dict) -> dict:
             for k in (pair if rep % 2 == 0 else pair[::-1]):
                 times[k].append(_wall(runs[k]))
     walls = {k: statistics.median(v) for k, v in times.items()}
-    # device ms of one run of each, every device event once, and the
-    # ladder steps' share (all 64 launches)
-    device = {k.removesuffix("_s") + "_device_ms": device_totals(_profiled(fn))
+    # device ms of one run of each, every device event once, every launch
+    # held, and the ladder steps' share (all 64 launches)
+    pins = {"g1_ladder_s": {"ladder_step_f1": 64},
+            "g2_ladder_with_static_s": {k: v for k, v in PER_LADDERS.items()
+                                        if k != "ladder_step_f1"}}
+    device = {k.removesuffix("_s") + "_device_ms": _totals(fn, pins.get(k))
               for k, fn in runs.items()}
     rows = rbits.to(torch.int32)[:, None, :]
     for name, pt, run in (("ladder_step_f1", apk, "g1_ladder_device_ms"),
@@ -2027,15 +2114,13 @@ def _ladders_1024(card: str, out: dict) -> dict:
         out.setdefault(name, {}).update(
             slice4_path_S=S,
             slice4_path_call_ms=_median_ms(lambda: _op(name)(*pt, *pt, rows[0])),
-            slice4_path_device_ms=device[run]["kernels_ms"].get(f"k_{name}"))
+            slice4_path_device_ms=_kernel_share(device[run], name))
     say("ladders", bucket=S, card=repr(card), r_apk="jac_eq scalar_mul_w2 on all lanes",
         r_sig="jac_eq scalar_mul_w2 on all lanes",
         u_sig="torch.equal scalar_mul_static",
         subgroup=f"psi(S)==-[|u|]S on {len(sub) - 1} real lanes, False on the lane off G2",
         counted_run_s=f"{wall:.4f}", **{k: f"{v:.4f}" for k, v in walls.items()},
-        **{k: f"{v['device_ms']:.4f}" for k, v in device.items()},
-        kernels_device_ms=json.dumps({k: {n: round(ms, 4) for n, ms in v["kernels_ms"].items()}
-                                      for k, v in device.items()}, separators=(",", ":")))
+        **_device_fields(device))
     return walls
 
 
@@ -2076,23 +2161,21 @@ def _unfused_doubling(out: dict) -> None:
             raise AssertionError(f"unfused doubling {i}: f12mul_034(f12sqr(f)) != miller_dbl_iter's f")
     # device ms of one run of the 63 unfused doublings and of the 63 fused
     # miller_dbl_iter launches on the same operands, each device event once
-    device = {"unfused": device_totals(_profiled(unfused)),
-              "fused": device_totals(_profiled(lambda: [OP._dbl_iter(*args)
-                                                        for args, _ in calls]))}
+    device = {"unfused": _totals(unfused, PER_UNFUSED),
+              "fused": _totals(lambda: [OP._dbl_iter(*args) for args, _ in calls],
+                               {"miller_dbl_iter": len(calls)})}
     f_mid = calls[len(calls) // 2][0][0].contiguous()
     ln = [a.contiguous() for a in lines[len(lines) // 2]]
     out.setdefault("f12sqr", {}).update(
         slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12sqr(f_mid)),
-        slice4_path_device_ms=device["unfused"]["kernels_ms"].get("k_f12sqr"))
+        slice4_path_device_ms=_kernel_share(device["unfused"], "f12sqr"))
     out.setdefault("f12mul_034", {}).update(
         slice4_path_S=128, slice4_path_call_ms=_median_ms(lambda: tower.f12mul_034(f_mid, *ln)),
-        slice4_path_device_ms=device["unfused"]["kernels_ms"].get("k_f12mul_034"))
+        slice4_path_device_ms=_kernel_share(device["unfused"], "f12mul_034"))
     say("ladders", unfused_doubling="torch.equal miller_dbl_iter's f", iterations=len(calls),
         lanes=128, wall_s=f"{wall:.4f}",
-        unfused_doubling_device_ms=f"{device['unfused']['device_ms']:.4f}",
-        fused_dbl_iter_device_ms=f"{device['fused']['device_ms']:.4f}",
-        kernels_device_ms=json.dumps({k: {n: round(ms, 4) for n, ms in v["kernels_ms"].items()}
-                                      for k, v in device.items()}, separators=(",", ":")))
+        **_device_fields({"unfused_doubling_device_ms": device["unfused"],
+                          "fused_dbl_iter_device_ms": device["fused"]}))
 
 
 def _ubench(card: str, out: dict) -> dict:
@@ -2176,6 +2259,416 @@ def phase_ladders(card: str) -> tuple:
     return out, launches, dict(walls=walls, ubench=ub)
 
 
+# ------------------------------------------------------------ phase 8: state
+# The north star's registry, 2^20 - 5 validators (a count that is not a
+# power of two, so that the registry's tree and both lists' trees meet a
+# layer of odd width): the cold roots of a state's `validators` (each
+# Validator's 8-field tree over its pubkey's 2-chunk tree), `balances` and
+# `inactivity_scores`, then the epoch pass over the same count of
+# validators.
+STATE_N = (1 << 20) - 5
+STATE_SEED = SEED + 21
+REGISTRY_LIMIT = 1 << 40                # VALIDATOR_REGISTRY_LIMIT
+LIST_CHUNK_LIMIT = REGISTRY_LIMIT // 4  # a List[uint64, 2^40]'s chunks
+FAR_FUTURE_EPOCH = 2**64 - 1
+EPOCH_FIELDS = ("activation_eligibility_epoch", "activation_epoch", "exit_epoch",
+                "withdrawable_epoch")
+# k_sha256_pairs held on seeded words at these node counts, and on the
+# path's own operands at its two widest levels
+SHA_S = (1, 261, 32768)
+# int32 operations a compression in the reference's count
+# (lighthouse_tpu/ops/lane/sha256.py:31-33; a node is two): it counts a
+# rotation as three operations and a three-way xor as two, where the card
+# does each in one (a funnel shift, a LOP3), so k_sha256_pairs runs under
+# it. The bound counts a node's least operations on the card instead, from
+# SHA-256's definition: a round 14 (Sigma1 and Sigma0 three funnel shifts
+# and a LOP3 each, ch and maj a LOP3 each, T1 two three-input adds, a and e
+# one each), a schedule step 10 (sigma0 and sigma1 4 each, its sum 2), 48
+# steps in the data block and none in the constant padding block, each
+# block's feed-forward 8; the data block's first round, on the constant IV,
+# keeps only its two adds of W[0]
+SHA_OPS = 2950
+SHA_NODE_OPS = 2 * 64 * 14 + 48 * 10 + 2 * 8 - 12
+# k_epoch_updates' bytes a validator: five int64 columns and two bool
+# read, three int64 and one bool written
+EPOCH_BYTES = 5 * 8 + 2 + 3 * 8 + 1
+# the epoch pass's three input sets: (label, leak, do_deltas)
+EPOCH_SETS = (("leak_off", False, True), ("leak_on", True, True), ("no_deltas", False, False))
+
+
+def state_columns(rng, n: int) -> dict:
+    """A registry of n validators with a real state's column shapes, from a
+    seed: pubkey 48 B, withdrawal credentials 32 B (0x01 prefix), effective
+    balance, slashed, the four epochs (FAR_FUTURE_EPOCH where not exiting),
+    and the uint64 lists balances and inactivity_scores."""
+    inc = 10**9
+    eff = np.where(rng.random(n) < 0.9, 32, rng.integers(16, 32, n)).astype(np.uint64) * inc
+    act = rng.integers(0, 200_000, n).astype(np.uint64)
+    exiting = rng.random(n) < 0.05
+    exit_e = act + rng.integers(256, 10_000, n).astype(np.uint64)
+    far = np.uint64(FAR_FUTURE_EPOCH)
+    wc = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    wc[:, 0], wc[:, 1:12] = 1, 0
+    return {
+        "pubkey": rng.integers(0, 256, (n, 48), dtype=np.uint8),
+        "withdrawal_credentials": wc,
+        "effective_balance": eff,
+        "slashed": rng.random(n) < 0.01,
+        "activation_eligibility_epoch": act - np.minimum(act, np.uint64(5)),
+        "activation_epoch": act,
+        "exit_epoch": np.where(exiting, exit_e, far),
+        "withdrawable_epoch": np.where(exiting, exit_e + np.uint64(256), far),
+        "balances": eff + rng.integers(0, 10**8, n).astype(np.uint64),
+        "inactivity_scores": rng.integers(0, 50, n).astype(np.uint64),
+    }
+
+
+def pack_state(cols: dict) -> dict:
+    """The leaves as big-endian words (the host pack): each pubkey's two
+    chunks [n, 2, 8] (48 bytes, zero-padded); each Validator's eight field
+    chunks [n, 8, 8], slot 0 left for its pubkey's root, then one chunk a
+    field (uint64 little-endian, the bool one byte, zero-padded); the two
+    uint64 lists packed four to a chunk."""
+    from lighthouse_tpu_torch.ops.lane import sha256 as H
+
+    n = len(cols["effective_balance"])
+    fields = np.zeros((n, 8, 32), np.uint8)
+    fields[:, 1] = cols["withdrawal_credentials"]
+    fields[:, 2, :8] = cols["effective_balance"].astype("<u8").view(np.uint8).reshape(n, 8)
+    fields[:, 3, 0] = cols["slashed"]
+    for j, key in enumerate(EPOCH_FIELDS):
+        fields[:, 4 + j, :8] = cols[key].astype("<u8").view(np.uint8).reshape(n, 8)
+    return {
+        "pubkeys": H.words_from_chunks(cols["pubkey"]),
+        "fields": H.words_from_chunks(fields.reshape(n, 8 * 32)),
+        **{key: H.words_from_chunks(cols[key].astype("<u8").view(np.uint8))
+           for key in ("balances", "inactivity_scores")},
+    }
+
+
+def state_to_device(packed: dict, device) -> dict:
+    from lighthouse_tpu_torch.ops.lane import sha256 as H
+
+    return {key: H.as_tensor(words, device) for key, words in packed.items()}
+
+
+def hash_state(t: dict, n: int) -> dict:
+    """The roots of the device's leaves `t` (state_to_device): the pubkey
+    roots (one launch) into the field chunks' slot 0, the element roots
+    (3 launches), the registry's root over them (a launch a level with
+    more than one node, the zero spine to 2^40 and the length on the host),
+    and both lists' roots the same way."""
+    from lighthouse_tpu_torch.ops.lane import merkle as M
+
+    t["fields"][:, 0] = M.reduce_layers(t["pubkeys"])
+    elems = M.reduce_layers(t["fields"])
+    return {
+        "element_roots": elems,
+        "validators": M.mix_in_length(M.merkleize(elems, REGISTRY_LIMIT), n),
+        **{key: M.mix_in_length(M.merkleize(t[key], LIST_CHUNK_LIMIT), n)
+           for key in ("balances", "inactivity_scores")},
+    }
+
+
+def state_launches(n: int) -> dict:
+    """hash_state's launches: the pubkey level, the element tree's 3, and
+    one a level with more than one node of the registry and each list."""
+    from lighthouse_tpu_torch.ops.lane import merkle as M
+
+    lists = len(M.level_pairs((n + 3) // 4))
+    return {"sha256_pairs": 1 + 3 + len(M.level_pairs(n)) + 2 * lists}
+
+
+def state_compressions(n: int) -> tuple:
+    """The compressions hash_state runs on the card and on the host (two a
+    node): the host's are each tree's zero spine above its device levels
+    and its length mix-in."""
+    from lighthouse_tpu_torch.ops.lane import merkle as M
+
+    lists = M.level_pairs((n + 3) // 4)
+    device = n + 7 * n + sum(M.level_pairs(n)) + 2 * sum(lists)
+    host = (40 - len(M.level_pairs(n)) + 1) + 2 * (38 - len(lists) + 1)
+    return 2 * device, 2 * host
+
+
+def _h(a: bytes, b: bytes) -> bytes:
+    return hashlib.sha256(a + b).digest()
+
+
+_HOST_ZEROS = [bytes(32)]
+for _ in range(64):
+    _HOST_ZEROS.append(_h(_HOST_ZEROS[-1], _HOST_ZEROS[-1]))
+
+
+def host_merkleize(chunks: list, limit: int) -> bytes:
+    """SSZ's merkleize over 32-byte chunks, padded to `limit` leaves, with
+    hashlib on the host: the yardstick of the device's trees."""
+    depth = (limit - 1).bit_length() if limit > 1 else 0
+    if not chunks:
+        return _HOST_ZEROS[depth]
+    layer = list(chunks)
+    for d in range(depth):
+        if len(layer) % 2:
+            layer.append(_HOST_ZEROS[d])
+        layer = [_h(layer[i], layer[i + 1]) for i in range(0, len(layer), 2)]
+    return layer[0]
+
+
+def host_validator_root(cols: dict, i: int) -> bytes:
+    """Validator i's hash_tree_root from its columns, by the SSZ rules and
+    hashlib alone."""
+    pk = cols["pubkey"][i].tobytes()
+    leaves = [_h(pk[:32], pk[32:] + bytes(16)), cols["withdrawal_credentials"][i].tobytes(),
+              int(cols["effective_balance"][i]).to_bytes(32, "little"),
+              bytes([int(cols["slashed"][i])]) + bytes(31),
+              *(int(cols[key][i]).to_bytes(32, "little") for key in EPOCH_FIELDS)]
+    return host_merkleize(leaves, 8)
+
+
+def _chunks(data: bytes) -> list:
+    data += bytes(-len(data) % 32)
+    return [data[i : i + 32] for i in range(0, len(data), 32)]
+
+
+def epoch_inputs(seed: int, n: int, leak: bool, do_deltas: bool, device) -> tuple:
+    """The epoch pass's columns (tensors on `device`) and scalars, drawn as
+    tests/test_epoch_columnar.py `_random_program_inputs` draws them, with
+    `leak` and `do_deltas` set."""
+    rng = np.random.default_rng(seed)
+    arrays = {
+        "eff": rng.integers(16 * 10**9, 2048 * 10**9, n).astype(np.int64),
+        "unslashed_prev": rng.random(n) < 0.8,
+        "eligible": rng.random(n) < 0.9,
+        "prev_part": rng.integers(0, 8, n).astype(np.int64),
+        "scores": rng.integers(0, 10**4, n).astype(np.int64),
+        "balances": rng.integers(0, 2049 * 10**9, n).astype(np.int64),
+        "slash_penalty": (rng.integers(0, 2, n) * rng.integers(0, 10**9, n)).astype(np.int64),
+    }
+    scalars = {
+        "do_deltas": np.bool_(do_deltas),
+        "leak": np.bool_(leak),
+        "base_reward_per_inc": np.int64(int(rng.integers(100, 10**6))),
+        "total_active_increments": np.int64(int(rng.integers(1, 2**25))),
+        "flag_inc_0": np.int64(int(rng.integers(0, 2**25))),
+        "flag_inc_1": np.int64(int(rng.integers(0, 2**25))),
+        "flag_inc_2": np.int64(int(rng.integers(0, 2**25))),
+        "increment": np.int64(10**9),
+        "cap": np.int64(32 * 10**9),
+        "hysteresis_down": np.int64(10**9 // 4),
+        "hysteresis_up": np.int64(10**9 // 2),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}, scalars
+
+
+def sha_bound_ms(nodes: int, node_ops: int) -> tuple:
+    """k_sha256_pairs' least time on `nodes` nodes: 64 B read and 32 B
+    written a node, against `node_ops` int32 operations a node."""
+    t_bytes = nodes * 96 / PEAK_BYTES_S
+    t_ops = nodes * node_ops / PEAK_INT32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def sass_stats(lib: str, kernel: str) -> dict | None:
+    """`kernel`'s SASS in this run's build of library `lib` (cuobjdump
+    -sass, beside nvcc), a report beside its bound: its instructions (NOPs
+    excluded), their opcodes, and how many read a constant bank other than
+    the parameters' (c[0x0]); None where the toolkit has no cuobjdump."""
+    from lighthouse_tpu_torch.ops.lane import kernels
+
+    cuobjdump = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return None
+    sass = subprocess.run([str(cuobjdump), "-sass", str(kernels.build_dir() / f"lib{lib}.so")],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    body = next(part for part in sass.split("Function : ")[1:]
+                if _short_name(part.split()[0]) == kernel)
+    lines = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", body)
+    ops = {}
+    for op, _ in lines:
+        ops[op] = ops.get(op, 0) + 1
+    return {"instructions": len(lines) - ops.get("NOP", 0),
+            "bank_operands": sum(bool(re.search(r"c\[0x[1-9a-f]", rest)) for _, rest in lines),
+            "by_op": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+def _state_checks(cols: dict, roots: dict, n: int) -> None:
+    """1,024 sampled element roots against host_validator_root; the
+    registry's upper tree over the device's element roots, and both lists'
+    roots, against host_merkleize (about 1.5 M hashlib calls)."""
+    from lighthouse_tpu_torch.ops.lane import sha256 as H
+
+    elems = H.chunks_from_words(roots["element_roots"])
+    sample = np.random.default_rng(STATE_SEED + 9).choice(n, 1024, replace=False)
+    bad = [int(i) for i in sample
+           if elems[32 * i : 32 * i + 32] != host_validator_root(cols, int(i))]
+    if bad:
+        raise AssertionError(f"state: element roots != hashlib at validators {bad[:8]}")
+    want = _h(host_merkleize(_chunks(elems), REGISTRY_LIMIT), n.to_bytes(32, "little"))
+    if roots["validators"] != want:
+        raise AssertionError("state: the registry's root != the host merkleize over its elements")
+    for key in ("balances", "inactivity_scores"):
+        data = cols[key].astype("<u8").tobytes()
+        want = _h(host_merkleize(_chunks(data), LIST_CHUNK_LIMIT), n.to_bytes(32, "little"))
+        if roots[key] != want:
+            raise AssertionError(f"state: the {key} root != the host merkleize")
+
+
+def _sha_holds(dev: dict, n: int, out: dict) -> None:
+    """k_sha256_pairs against its plain body: seeded words at SHA_S, and
+    the path's own operands at its pubkey level (n pairs) and at the
+    element tree's first level, its widest (4n pairs, read in place);
+    device ms and bound at each, call and plain ms at n."""
+    from lighthouse_tpu_torch.ops.lane import sha256 as H
+
+    g = np.random.default_rng(STATE_SEED + 5)
+    cases = {S: tuple(H.as_tensor(g.integers(0, 1 << 32, (S, 8), dtype=np.uint32), DEVICE)
+                      for _ in range(2)) for S in SHA_S}
+    pk, fields = dev["pubkeys"].reshape(-1, 8), dev["fields"].reshape(-1, 8)
+    cases[n] = (pk[0::2], pk[1::2])
+    cases[4 * n] = (fields[0::2], fields[1::2])
+    row = out["sha256_pairs"]
+    for S, args in cases.items():
+        row["max_abs_err"] = max(row["max_abs_err"], _hold("sha256_pairs", args, f"S={S}"))
+        ms, by = _kernel_ms("sha256_pairs", lambda: H.digest_pairs(*args))
+        row[f"ms_S{S}"], row[f"bound_ms_S{S}"] = ms, sha_bound_ms(S, SHA_NODE_OPS)[0]
+        if by != "profiler":
+            row[f"ms_S{S}_timed_by"] = by
+    args = cases[n]
+    row.update(ms=row[f"ms_S{n}"], call_ms=_median_ms(lambda: H.digest_pairs(*args)),
+               plain_ms=_median_ms(lambda: H.digest_pairs.plain(*args), reps=3, warm=1))
+    row["bound_ms"], row["bound_by"] = sha_bound_ms(n, SHA_NODE_OPS)
+    say("state", kernel="sha256_pairs", equal="yes", tolerance="exact(torch.equal)",
+        S="|".join(map(str, cases)), ptxas=json.dumps(PTXAS.get("sha256_pairs", {})),
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()})
+
+
+def _epoch_holds(sets: dict, n: int, out: dict) -> None:
+    """k_epoch_updates against its plain body at n validators on each of
+    EPOCH_SETS; device ms warm and with the L2 cleared before each launch
+    (a 256 MiB write), call and plain ms, on the first set."""
+    from lighthouse_tpu_torch.ops import epoch as E
+
+    row = out["epoch_updates"]
+    for label, args in sets.items():
+        row["max_abs_err"] = max(row["max_abs_err"], _hold("epoch_updates", args, label))
+    args = sets[EPOCH_SETS[0][0]]
+    ms, by = _kernel_ms("epoch_updates", lambda: E.updates(*args))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    cold, cold_by = _kernel_ms("epoch_updates", lambda: (flush.fill_(0), E.updates(*args)))
+    del flush
+    row.update({"ms": ms, f"ms_S{n}": ms, f"cold_ms_S{n}": cold,
+                "call_ms": _median_ms(lambda: E.updates(*args)),
+                "plain_ms": _median_ms(lambda: E.updates.plain(*args), reps=5, warm=1),
+                "bound_ms": n * EPOCH_BYTES / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                f"bound_ms_S{n}": n * EPOCH_BYTES / PEAK_BYTES_S * 1e3})
+    for key, how in (("ms", by), ("cold_ms", cold_by)):
+        if how != "profiler":
+            row[f"{key}_S{n}_timed_by"] = how
+    say("state", kernel="epoch_updates", equal="yes", tolerance="exact(torch.equal)",
+        sets=",".join(sets), S=n, ptxas=json.dumps(PTXAS.get("epoch_updates", {})),
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in row.items()})
+
+
+def _numpy_entries(packed: dict, sets: dict, out: dict) -> None:
+    """The reference's contracts on the card, numpy in and out:
+    compress_pairs on the pubkey level's words and epoch_updates on the
+    first epoch set's columns, each equal to its tensor entry on the same
+    operands; their call ms (the copies both ways included), beside the
+    epoch pass's plain body on the host's CPU on the same columns."""
+    from lighthouse_tpu_torch.ops import epoch as E
+    from lighthouse_tpu_torch.ops.lane import sha256 as H
+
+    left, right = packed["pubkeys"][:, 0], packed["pubkeys"][:, 1]
+    got = H.compress_pairs(left, right)
+    want = H.digest_pairs(H.as_tensor(left, DEVICE), H.as_tensor(right, DEVICE))
+    if got.dtype != np.uint32 or not np.array_equal(got, want.cpu().numpy().view(np.uint32)):
+        raise AssertionError("compress_pairs on the card != digest_pairs")
+    arrays, scalars = sets[EPOCH_SETS[0][0]]
+    cols = {k: v.cpu().numpy() for k, v in arrays.items()}
+    host = {k: v.cpu() for k, v in arrays.items()}
+    got = E.epoch_updates(cols, scalars)
+    for g, w in zip(got, E.updates(arrays, scalars), strict=True):
+        if not (isinstance(g, np.ndarray) and np.array_equal(g, w.cpu().numpy())):
+            raise AssertionError("epoch_updates on the card != updates")
+    ms = {"sha256_pairs": statistics.median(
+              _wall(lambda: H.compress_pairs(left, right)) for _ in range(5)) * 1e3,
+          "epoch_updates": statistics.median(
+              _wall(lambda: E.epoch_updates(cols, scalars)) for _ in range(5)) * 1e3}
+    host_ms = statistics.median(_wall(lambda: E.updates(host, scalars)) for _ in range(3)) * 1e3
+    out["sha256_pairs"]["numpy_entry_call_ms"] = ms["sha256_pairs"]
+    out["epoch_updates"].update(numpy_entry_call_ms=ms["epoch_updates"], host_plain_ms=host_ms)
+    say("state", compress_pairs="== digest_pairs", nodes=len(left),
+        call_ms=f"{ms['sha256_pairs']:.4f}")
+    say("state", epoch_updates="== updates", validators=len(cols["eff"]),
+        call_ms=f"{ms['epoch_updates']:.4f}", host_plain_ms=f"{host_ms:.4f}")
+
+
+def phase_state(card: str) -> tuple:
+    """Phase 8: a registry of STATE_N validators, its cold roots and its
+    epoch pass, the launch counters zeroed just before and read just after;
+    the roots against hashlib, both kernels against their plain bodies, the
+    numpy entries against the tensor entries."""
+    from lighthouse_tpu_torch.ops import epoch as E
+
+    n = STATE_N
+    cols = state_columns(np.random.default_rng(STATE_SEED), n)
+    t = time.perf_counter()
+    packed = pack_state(cols)
+    pack_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dev = state_to_device(packed, DEVICE)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t
+    sets = {label: epoch_inputs(STATE_SEED + i, n, leak, deltas, DEVICE)
+            for i, (label, leak, deltas) in enumerate(EPOCH_SETS)}
+    launches = {**state_launches(n), "epoch_updates": 1}
+    (roots, _), path_s = _window("state", launches, lambda: (
+        hash_state(dev, n), E.updates(*sets[EPOCH_SETS[0][0]])), phase="state")
+    _state_checks(cols, roots, n)
+    say("state", validators=n, element_roots="1,024 sampled == hashlib",
+        registry_root="== host merkleize over the device's element roots (limit 2^40, length "
+        "mixed in)", balances_root="== host merkleize", inactivity_scores_root="== host merkleize")
+    events, tries = _profiled(lambda: hash_state(dev, n), state_launches(n))
+    wall = statistics.median(_wall(lambda: hash_state(dev, n)) for _ in range(5))
+    comp, host_comp = state_compressions(n)
+    bound, bound_by = sha_bound_ms(comp // 2, SHA_NODE_OPS)
+    leaf_bytes = sum(w.nbytes for w in packed.values())
+    say("state", card=repr(card), host_pack_s=f"{pack_s:.4f}", leaf_bytes=leaf_bytes)
+    say("state", h2d_s=f"{h2d_s:.4f}")
+    tot = device_totals(events) if events is not None else None
+    if tot is None:
+        say("state", device_ms=f"not_measured(no whole trace in {tries} tries)")
+    else:
+        glue = {}
+        for e in events:
+            if not re.search(r"\bk_\w+", e.key):
+                k = _short_key(e.key)
+                c, ms = glue.get(k, (0, 0.0))
+                glue[k] = (c + 1, ms + _device_time(e) / 1e3)
+        say("state", device_ms=f"{tot['device_ms']:.5f}", counted="once(device_totals)",
+            glue_ms=f"{tot['glue_ms']:.5f}", trace_tries=tries,
+            glue=json.dumps({k: [c, round(ms, 5)] for k, (c, ms) in glue.items()},
+                            separators=(",", ":")),
+            kernels_ms=json.dumps({k: round(v, 5) for k, v in tot["kernels_ms"].items()}))
+    say("state", launches=json.dumps(launches, separators=(",", ":")))
+    say("state", compressions=comp, host_compressions=host_comp)
+    for name, lib in (("sha256_pairs", "sha256"), ("epoch_updates", "epoch")):
+        st = sass_stats(lib, f"k_{name}")
+        say("state", kernel=name, sass=json.dumps(st, separators=(",", ":")) if st else
+            "not_measured(no cuobjdump)")
+    say("state", bound_ms=f"{bound:.5f}", bound_by=bound_by, ops_per_node=SHA_NODE_OPS,
+        reference_count_ms=f"{sha_bound_ms(comp // 2, 2 * SHA_OPS)[0]:.5f}")
+    say("state", hash_wall_s=f"{wall:.4f}", path_wall_s=f"{path_s:.4f}")
+    out = {"sha256_pairs": {"max_abs_err": 0,
+                            "state_path_device_ms": _kernel_share(tot, "sha256_pairs")},
+           "epoch_updates": {"max_abs_err": 0}}
+    _sha_holds(dev, n, out)
+    _epoch_holds(sets, n, out)
+    _numpy_entries(packed, sets, out)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -2199,26 +2692,31 @@ def main() -> int:
     launches_kzg = timed("e2e", phase_e2e)
     per_bls, launches = timed("bls", lambda: phase_bls(card))
     per_s4, launches_s4, _ = timed("ladders", lambda: phase_ladders(card))
+    per_state, launches_state = timed("state", lambda: phase_state(card))
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        parts = [d[name] for d in (per_kernel, per_bls, per_s4) if name in d]
+        parts = [d[name] for d in (per_kernel, per_bls, per_s4, per_state) if name in d]
         k = {kk: v for d in parts for kk, v in d.items()}
         k["max_abs_err"] = max(d.get("max_abs_err", 0) for d in parts)
-        # launches: the main path's for its kernels, slice 4's paths' for
-        # theirs, none for a kernel no path launches
+        # launches: the main path's for its kernels, slice 4's paths' and
+        # phase 8's for theirs, none for a kernel no path launches
         n = (launches[name] if name in BLS_KERNELS
-             else launches_s4[name] if name in SLICE4_KERNELS else launches.get(name, 0))
+             else launches_s4[name] if name in SLICE4_KERNELS
+             else launches_state[name] if name in STATE_KERNELS else launches.get(name, 0))
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": n, "launches_kzg": launches_kzg.get(name, 0),
             "launches_slice4": launches_s4.get(name, 0),
+            "launches_state": launches_state.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             # the CUDA-event call ms at S=4096 and at each path's own width
             **{key: k[key] for key in ("call_ms", "path_S", "path_call_ms", "bls_path_S",
                                        "bls_path_call_ms", "slice4_path_S",
-                                       "slice4_path_call_ms", "slice4_path_device_ms")
+                                       "slice4_path_call_ms", "slice4_path_device_ms",
+                                       "state_path_device_ms", "numpy_entry_call_ms",
+                                       "host_plain_ms")
                if key in k},
             # the cooperative kernels' device ms and bound at each
             # path width, and their blocks' dynamic shared memory

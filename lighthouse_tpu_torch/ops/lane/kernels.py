@@ -50,6 +50,10 @@ SOURCES = {
     # the Fp-mul microbenchmark: built here with the rest, bound and given
     # its own tables by lighthouse_tpu_torch/tools/ubench_mul.py
     "ubench_mul": "ubench_mul.cu",
+    # state hashing and the epoch pass: no Fp tables, no init; bound by
+    # ops/lane/sha256.py and ops/epoch.py through `library`
+    "sha256": "sha256.cu",        # sha256_pairs
+    "epoch": "epoch.cu",          # epoch_updates
 }
 HEADERS = ("fp_lane.cuh", "coop.cuh", "canon.cuh")
 
@@ -116,6 +120,7 @@ W = 36
 
 _LOCK = threading.Lock()
 _LIBS: dict | None = None
+_TABLELESS: dict = {}
 # what the last build did: directory, seconds, per-library ptxas log
 BUILD_INFO: dict = {}
 
@@ -247,6 +252,26 @@ def libs() -> dict:
                 for lib in sorted({lib for lib, _, _ in ENTRIES.values()})
             }
     return _LIBS
+
+
+def library(lib: str, argtypes: dict):
+    """Library `lib` of SOURCES that takes no tables (sha256, epoch), built
+    at first use with every other library and loaded once, with the C
+    argument types of its entries from `argtypes` (symbol -> list; each
+    entry returns a status, 0 or a CUDA error code)."""
+    with _LOCK:
+        so = _TABLELESS.get(lib)
+        if so is None:
+            so = ctypes.CDLL(str(build() / f"lib{lib}.so"))
+            for sym, types in argtypes.items():
+                fn = getattr(so, sym)
+                fn.argtypes, fn.restype = types, ctypes.c_int
+            err = getattr(so, f"lh_{lib}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            torch.cuda.init()
+            _TABLELESS[lib] = so
+    return so
 
 
 def bind(lib: str, so):

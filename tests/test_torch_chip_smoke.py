@@ -194,3 +194,60 @@ def test_canonical_and_reduce_light_held_at_their_verify_widths():
     assert chains.shape == (36, 23) and chains.dtype == np.int32
     assert (chains[35, :21] == 0).all()
     assert (chains[:, 21] == 2047).all() and (chains[:, 22] == -2047).all()
+
+
+def test_state_phase_packs_validators_as_the_reference_roots_them():
+    """Phase 8's leaves on 5 seeded validators, rooted by the port's plain
+    bodies on the CPU: each element root equals the reference's
+    Validator.hash_tree_root, the registry's root the reference's
+    List(Validator, 2^40) root, each uint64 list's root its List(uint64,
+    2^40) root, and the hashlib yardstick of the card's checks agrees."""
+    import numpy as np
+
+    from lighthouse_tpu.consensus import ssz, types as T
+    from lighthouse_tpu_torch.ops.lane import fp, sha256 as H
+
+    n = 5
+    cols = smoke.state_columns(np.random.default_rng(21), n)
+    fp.reset_counts()
+    roots = smoke.hash_state(smoke.state_to_device(smoke.pack_state(cols), "cpu"), n)
+    assert not fp.LAUNCHES and not fp.PLAIN_CUDA_CALLS
+    vals = [T.Validator.make(
+        pubkey=cols["pubkey"][i].tobytes(),
+        withdrawal_credentials=cols["withdrawal_credentials"][i].tobytes(),
+        effective_balance=int(cols["effective_balance"][i]), slashed=bool(cols["slashed"][i]),
+        **{k: int(cols[k][i]) for k in smoke.EPOCH_FIELDS}) for i in range(n)]
+    elems = H.chunks_from_words(roots["element_roots"])
+    for i, v in enumerate(vals):
+        assert elems[32 * i : 32 * i + 32] == T.Validator.hash_tree_root(v)
+        assert smoke.host_validator_root(cols, i) == T.Validator.hash_tree_root(v)
+    assert roots["validators"] == ssz.List(T.Validator, 2**40).hash_tree_root(vals)
+    for key in ("balances", "inactivity_scores"):
+        want = ssz.List(ssz.uint64, 2**40).hash_tree_root([int(x) for x in cols[key]])
+        assert roots[key] == want
+    assert smoke.host_merkleize([], 8) == ssz.merkleize([], 8)
+
+
+def test_state_phase_pins_its_launches_and_work():
+    """At 2^20 - 5 validators (the registry's first layer and both lists'
+    first layers of odd width) hash_state makes 60 launches (the pubkey
+    level, the element trees' 3, the registry's 20 levels with more than
+    one node, the two lists' 18 each) and 19,922,852 compressions on the
+    card, 126 on the host (the zero spines to 2^40 and 2^38 chunks, the
+    mix-ins); its operations bound is 1.754 ms at the reference's 2,950 a
+    compression and 0.677 ms at the 2,276 a node that SHA-256's definition
+    needs on the card; the epoch pass moves 67 bytes a validator."""
+    n = smoke.STATE_N
+    assert n == 2**20 - 5 and n % 2 == 1 and (n + 3) // 4 % 2 == 1
+    assert smoke.state_launches(n) == {"sha256_pairs": 60}
+    assert smoke.state_compressions(n) == (19_922_852, 126)
+    ms, by = smoke.sha_bound_ms(19_922_852 // 2, 2 * smoke.SHA_OPS)
+    assert by == "operations" and round(ms, 3) == 1.754
+    assert smoke.SHA_NODE_OPS == 2_276
+    ms, by = smoke.sha_bound_ms(19_922_852 // 2, smoke.SHA_NODE_OPS)
+    assert by == "operations" and round(ms, 3) == 0.677
+    assert smoke.EPOCH_BYTES == 67
+    assert smoke.STATE_KERNELS == ("sha256_pairs", "epoch_updates")
+    assert smoke.KERNELS["sha256_pairs"][1] == "lighthouse_tpu/ops/lane/sha256.py:150"
+    assert smoke.KERNELS["epoch_updates"][1] == "lighthouse_tpu/ops/epoch.py:83"
+    assert [label for label, _, _ in smoke.EPOCH_SETS] == ["leak_off", "leak_on", "no_deltas"]
